@@ -1,0 +1,73 @@
+"""Build and load the port's CUDA kernels (nvcc + ctypes, no torch headers).
+
+Each ``csrc/<name>.cu`` exposes plain C entry points and compiles on its own,
+on first use (:func:`load`; nothing is compiled when a module is imported),
+into ``lib<name>-<hash>.so``, keyed by the source's content hash so an edited
+source is never served a stale library.  The library lands in
+``build/kernels/`` at the root of the checkout the package runs from, or, for
+an installed package, in ``_build/`` beside this module — never in a
+directory shared with other checkouts.
+
+Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3`` and
+``--fmad=false`` — the kernels reproduce the float32 operation order of the
+numpy reference, so nvcc must not contract a multiply and an add into an
+FMA.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+#: <checkout>/src/repro_torch/kernels -> <checkout>
+_ROOT = _HERE.parents[2]
+BUILD_DIR = (_ROOT / "build" / "kernels"
+             if _HERE.parents[1].name == "src"
+             and (_ROOT / "pyproject.toml").exists() else _HERE / "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "build only on a machine with the CUDA toolkit")
+    return found
+
+
+def lib_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel source, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        out = lib_path(name)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu "
+                                   f"(exit {proc.returncode}):\n"
+                                   f"{proc.stdout}")
+            os.replace(tmp, out)
+        lib = _LIBS[name] = ctypes.CDLL(str(out))
+    return lib
