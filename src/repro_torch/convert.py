@@ -6,6 +6,11 @@ reference ``repro.core.simulator.BankSim`` (by attribute, without importing
 the reference), and :func:`bank_state_from_numpy` rebuilds it as a port
 :class:`~repro_torch.core.simulator.BankSim` on a device — so one episode
 can be forked into both packages mid-stream and continued in each.
+
+The PuD engine holds no state to carry: a packed bit-plane of the reference
+(uint32 words) crosses over as
+``torch.from_numpy(np.asarray(p).view(np.int32))`` — the port's planes are
+int32 bit patterns (``repro_torch.pud.engine.as_planes`` does this).
 """
 from __future__ import annotations
 

@@ -129,8 +129,8 @@ class CostModel:
 
     All in-DRAM ops are row-granular: one op processes ``shared_w`` bits
     (half a row per chip; x8 chips in lock-step process 8x that per rank).
-    The command-log twins (``log_*``) and the CPU baseline of the reference
-    come with the compiler and engine slices.
+    The command-log twins (``log_*``) of the reference come with the
+    compiler's execution half.
     """
 
     def __init__(self, module: ModuleConfig | None = None, *,
@@ -193,6 +193,14 @@ class CostModel:
 
     def op_not(self, n_dst: int = 1) -> OpCost:
         return self._apa(1 + n_dst, first_restored=True)
+
+    def cpu_baseline(self, n: int, rows: int = 1) -> OpCost:
+        """Processor-centric baseline: read N operand rows over the bus,
+        compute on CPU, write one result row back."""
+        c = self.read_row().scaled(n * rows) + self.write_row().scaled(rows)
+        bts = self.row_bits // 8
+        c.energy_pj += n * rows * (bts / 64.0) * ENERGY_PJ["cpu_op_per_64B"]
+        return c
 
 
 # ---------------------------------------------------------------------------

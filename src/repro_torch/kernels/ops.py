@@ -5,18 +5,23 @@ tensor takes the plain PyTorch version.  Nothing falls back from one to the
 other.  ``repro_torch.core.simulator`` calls :func:`senseamp_gather` once
 per Boolean APA; :func:`senseamp_resolve` / :func:`senseamp_resolve_trials`
 are the slab front ends of the reference's ``repro.kernels.ops``, served by
-the same kernel with identity slot indices.
+the same kernel with identity slot indices.  ``repro_torch.pud.engine``'s
+``kernel`` backend calls the plane ops: :func:`nary_bitwise`,
+:func:`bitwise_not`, :func:`add_planes` and :func:`bitcount_planes`.
 """
 from __future__ import annotations
 
 import torch
 
+from . import bitserial as _bitserial
+from . import bitwise as _bitwise
 from . import ref  # re-exported for tests
 from . import senseamp as _senseamp
 from .ref import pack_bits, unpack_bits
 
-__all__ = ["pack_bits", "ref", "senseamp_gather", "senseamp_resolve",
-           "senseamp_resolve_trials", "unpack_bits"]
+__all__ = ["add_planes", "bitcount_planes", "bitwise_not", "nary_bitwise",
+           "nary_bitwise_bits", "pack_bits", "ref", "senseamp_gather",
+           "senseamp_resolve", "senseamp_resolve_trials", "unpack_bits"]
 
 
 def _route(x: torch.Tensor, cuda, plain):
@@ -63,3 +68,39 @@ def senseamp_resolve(com_cells, ref_cells, static, normals, uniforms, *,
         com_cells[None], ref_cells[None], static, normals[None],
         uniforms[:, None], u_com=u_com, u_ref=u_ref, shift=shift, pf=pf,
         trial_sigma=trial_sigma)[0]
+
+
+# ---------------------------------------------------------------------------
+# Packed bit-plane ops (int32 bit patterns)
+# ---------------------------------------------------------------------------
+def nary_bitwise(planes: torch.Tensor, op: str) -> torch.Tensor:
+    """(N, R, C) packed int32 -> (R, C); op in {and, or, nand, nor, xor}."""
+    return _route(planes, _bitwise.nary_bitwise_cuda,
+                  _bitwise.nary_bitwise_plain)(planes, op)
+
+
+def bitwise_not(plane: torch.Tensor) -> torch.Tensor:
+    """(R, C) packed int32 -> its complement (the paper's NOT)."""
+    return _route(plane, _bitwise.bitwise_not_cuda,
+                  _bitwise.bitwise_not_plain)(plane)
+
+
+def add_planes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(K, R, C) + (K, R, C) packed planes, LSB first -> (K+1, R, C)."""
+    return _route(a, _bitserial.add_planes_cuda,
+                  _bitserial.add_planes_plain)(a, b)
+
+
+def bitcount_planes(planes: torch.Tensor) -> torch.Tensor:
+    """(N, R, C) -> (max(1, N.bit_length()), R, C) per-bit popcount,
+    bit-sliced, LSB first."""
+    return _route(planes, _bitserial.bitcount_planes_cuda,
+                  _bitserial.bitcount_planes_plain)(planes)
+
+
+def nary_bitwise_bits(bit_vectors: torch.Tensor, op: str) -> torch.Tensor:
+    """(N, W) uint8 in {0,1} -> (W,) uint8.  Pads W to a multiple of 32."""
+    _n, w = bit_vectors.shape
+    bv = torch.nn.functional.pad(bit_vectors, (0, (-w) % 32))
+    out = nary_bitwise(pack_bits(bv)[:, None, :], op)     # (1, B)
+    return unpack_bits(out)[0, :w]

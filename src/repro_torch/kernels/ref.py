@@ -1,9 +1,8 @@
 """Plain PyTorch oracles of the reference kernels (``repro.kernels.ref``).
 
 They keep the reference's own formulas and operation order, so the port's
-tests can hold them against ``repro.kernels.ref`` exactly.  The rest of the
-reference oracles (bitwise, bit-serial, popcount GEMM) come with their
-kernels.
+tests can hold them against ``repro.kernels.ref`` exactly.  The popcount
+GEMM and ``maj3`` oracles come with their kernels.
 
 Packed words are ``int32`` bit patterns: on PyTorch 2.13 ``~`` and ``>>``
 raise on ``torch.uint32``.  ``words.numpy().view(np.uint32)`` gives the
@@ -13,6 +12,68 @@ from __future__ import annotations
 
 import torch
 
+
+# ---------------------------------------------------------------------------
+# N-ary bitwise ops on packed bit-planes
+# ---------------------------------------------------------------------------
+def nary_bitwise(op: str, planes: torch.Tensor) -> torch.Tensor:
+    """planes: (N, ...) packed int32 -> (...) int32; op in {and, or, nand,
+    nor, xor}, reduced plane by plane in index order."""
+    n = planes.shape[0]
+    if op in ("and", "nand"):
+        acc = planes[0]
+        for i in range(1, n):
+            acc = acc & planes[i]
+        return ~acc if op == "nand" else acc
+    if op in ("or", "nor"):
+        acc = planes[0]
+        for i in range(1, n):
+            acc = acc | planes[i]
+        return ~acc if op == "nor" else acc
+    if op == "xor":
+        acc = planes[0]
+        for i in range(1, n):
+            acc = acc ^ planes[i]
+        return acc
+    raise ValueError(op)
+
+
+def not_(plane: torch.Tensor) -> torch.Tensor:
+    return ~plane
+
+
+def bitcount_planes(planes: torch.Tensor) -> torch.Tensor:
+    """Per-bit-position popcount across N planes -> bit-sliced counter:
+    (N, ...) -> (max(1, N.bit_length()), ...) counter planes, LSB first."""
+    n = planes.shape[0]
+    k = max(1, n.bit_length())
+    slices = [torch.zeros_like(planes[0]) for _ in range(k)]
+    for i in range(n):
+        carry = planes[i]
+        for j in range(k):
+            new = slices[j] ^ carry
+            carry = slices[j] & carry
+            slices[j] = new
+    return torch.stack(slices)
+
+
+def add_planes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(K, ...) + (K, ...) packed planes, LSB first -> (K+1, ...):
+    ripple carry, the carry plane last."""
+    k = a.shape[0]
+    outs = []
+    carry = torch.zeros_like(a[0])
+    for i in range(k):
+        s = a[i] ^ b[i] ^ carry
+        carry = (a[i] & b[i]) | (carry & (a[i] ^ b[i]))
+        outs.append(s)
+    outs.append(carry)
+    return torch.stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# Sense-amp Monte-Carlo resolver
+# ---------------------------------------------------------------------------
 
 def senseamp_resolve(v_com: torch.Tensor, v_ref: torch.Tensor,
                      static_off: torch.Tensor, noise: torch.Tensor,
