@@ -12,7 +12,14 @@ composition at S = 16384, MoE routing masks, Bloom-filter dedup over a
 2**26-bit plane, the bit-serial adder and popcount over (1024, 1024)
 planes and the bit-serial dot product, on the ``nary_bitwise`` /
 ``bitwise_not`` / ``add_planes`` / ``bitcount_planes`` kernels; and the
-``dram`` backend, whose Boolean APAs resolve in the sense-amp kernel.
+``dram`` backend, whose Boolean APAs resolve in the sense-amp kernel.  The
+third is the binary dot product, computed two ways: as XNOR-popcount
+binary linears at the projection widths of ``configs/qwen3_4b.py`` on the
+``popcount_gemm`` kernel (forward, then STE training steps), and as
+compiled AND + popcount programs executed on the simulated DRAM banks
+(``dot_bitserial_tree``, the ``dram`` engine's ``run_program`` / ``add``,
+the program-level Monte-Carlo), held against the kernel; ``maj3`` runs
+through its entry point.
 Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
@@ -29,7 +36,16 @@ Phases:
    and noisy (mismatches near the Fig. 15 failure rate);
 7. ``draws="numpy"`` on the card against the same run on the CPU (equal),
    for the Monte-Carlo and for the ``dram`` engine;
-8. the closed-form sampler on the card.
+8. the closed-form sampler on the card;
+9. the binary linears (``quant_path``): up (9728 × 2560) and down
+   (2560 × 9728) on 2048 tokens, the integer dots equal to the plain
+   version bit for bit, then 5 STE SGD steps whose loss must fall;
+10. the bank-executed programs (``program_path``): ``dot_bitserial_tree``
+    (M = N = 128, K = 32, 4 banks) ideal equal to ``popcount_gemm_bits``
+    on the kernel and noisy with its mismatch rate, the ``dram`` engine's
+    ``run_program`` / ``add`` ideal equal to the ``kernel`` backend, the
+    program Monte-Carlo (xor / maj3 / add4, host-staged and resident), and
+    ``draws="numpy"`` card == CPU; then ``maj3`` through ``ops.maj3``.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -58,7 +74,25 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 #: operation bound of the plane kernels is optimistic — they are bound by
 #: bytes many times over either way)
 OPS_PER_S = 67e12
-KERNEL_SOURCES = ("senseamp", "bitwise", "bitserial")
+#: dense int8 tensor-core rate (H100 SXM data sheet): the fastest exact
+#: path the card has for the popcount GEMM, whose xnor product is a ±1
+#: int8 product with int32 sums (2 operations per multiply-add) — its bound
+INT8_OPS_PER_S = 1979e12
+#: 32-bit population counts per clock per SM on compute capability 9.0
+#: (CUDA C++ Programming Guide, arithmetic-instruction throughput table);
+#: times the SM count and the card's max SM clock (read from nvidia-smi)
+#: this is the ceiling of the CUDA-core design, printed beside the bound
+POPC_PER_CLK_SM = 16
+KERNEL_SOURCES = ("senseamp", "bitwise", "bitserial", "popcount_gemm")
+#: the projection widths of src/repro/configs/qwen3_4b.py, on 2048 tokens
+D_MODEL, D_FF, TOKENS = 2560, 9728, 2048
+#: the reference's program-level MC success (BENCH_pr10.json, "Resident vs
+#: host-staged program execution": staged_succ / resident_succ); the
+#: 2-input NAND / AND / OR these programs compose fail often, so whole
+#: programs land near 0.5-0.6
+REF_PROGRAM_RATES = {"xor_host": 0.4933, "xor_scheduled": 0.5458,
+                     "maj3_host": 0.5959, "maj3_scheduled": 0.5960,
+                     "add4_host": 0.5023, "add4_scheduled": 0.5193}
 PAPER_16 = {"and": 0.9494, "nand": 0.9494, "or": 0.9585, "nor": 0.9587}
 PAPER_NOT1 = 0.9837
 TRIALS, ROW_BITS = 10_000, 8192
@@ -206,7 +240,7 @@ def check_bitkernels(BW, BS) -> list[dict]:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
     worst = {"nary_bitwise": 0, "bitwise_not": 0, "add_planes": 0,
-             "bitcount_planes": 0}
+             "bitcount_planes": 0, "maj3": 0}
 
     def held(name, got, want, what):
         d = _diff(got, want)
@@ -222,6 +256,12 @@ def check_bitkernels(BW, BS) -> list[dict]:
         p = _words(gen, *shape)
         held("bitwise_not", BW.bitwise_not_cuda(p), BW.bitwise_not_plain(p),
              shape)
+    for shape in ((7, 1000), (1, 3), (3, 70)):
+        abc = [_words(gen, *shape) for _ in range(3)]
+        held("maj3", BW.maj3_cuda(*abc), BW.maj3_plain(*abc), shape)
+    abc = [_words(gen, 1, 4101)[:, 1:] for _ in range(3)]   # unaligned
+    held("maj3", BW.maj3_cuda(*(x.contiguous() for x in abc)),
+         BW.maj3_plain(*abc), "unaligned")
     for k, shape in ((1, (7, 1000)), (5, (3, 70))):
         a, b = _words(gen, k, *shape), _words(gen, k, *shape)
         held("add_planes", BS.add_planes_cuda(a, b),
@@ -255,7 +295,10 @@ def check_bitkernels(BW, BS) -> list[dict]:
     plane = _words(gen, 16384, 512)
     t_not = timed("bitwise_not", BW.bitwise_not_cuda, BW.bitwise_not_plain,
                   (plane,), 4 * 2 * words, words, library=torch.bitwise_not)
-    del plane
+    abc = [plane, _words(gen, 16384, 512), _words(gen, 16384, 512)]
+    t_maj = timed("maj3", BW.maj3_cuda, BW.maj3_plain, abc, 4 * 4 * words,
+                  4 * words)
+    del plane, abc
     words = 1024 * 1024
     a, b = _words(gen, 16, 1024, 1024), _words(gen, 16, 1024, 1024)
     t_add = timed("add_planes", BS.add_planes_cuda, BS.add_planes_plain,
@@ -277,6 +320,9 @@ def check_bitkernels(BW, BS) -> list[dict]:
         dict(name="bitwise_not", source=src + "bitwise.cu",
              replaces="src/repro/kernels/bitwise.py:84", **t_not,
              shape={"R": 16384, "C": 512}),
+        dict(name="maj3", source=src + "bitwise.cu",
+             replaces="src/repro/kernels/bitwise.py:110", **t_maj,
+             shape={"R": 16384, "C": 512}),
         dict(name="add_planes", source=src + "bitserial.cu",
              replaces="src/repro/kernels/bitserial.py:47", **t_add,
              shape={"K": 16, "R": 1024, "C": 1024}),
@@ -288,13 +334,75 @@ def check_bitkernels(BW, BS) -> list[dict]:
              "max_abs_err": float(worst[r["name"]]), **r} for r in rows]
 
 
+def _pm1_bf16(words: torch.Tensor, k: int) -> torch.Tensor:
+    """Packed words (rows, KB) -> the ±1 values of their first k bits as
+    bfloat16 (rows, k): the operands of the library yardstick."""
+    from repro_torch.kernels.ops import unpack_bits
+    return (2 * unpack_bits(words)[:, :k].to(torch.bfloat16) - 1)
+
+
+def check_popcount_gemm(PG, clock_mhz: float) -> dict:
+    """The binary GEMM vs its plain twin, bit for bit: both kinds at
+    ragged shapes (130 x 50 x 65 is the reference's padded-and-corrected
+    case) and at the two serve shapes of the quant path, xnor timed there.
+    Bound: the same product as ±1 int8 on the tensor cores, 2·M·N·32·KB
+    operations at the dense int8 rate (the bytes bound is smaller);
+    ``popc_bound_ms`` is the CUDA-core design's own ceiling, one POPC per
+    (m, n, word) at 16 per clock per SM.  Library yardstick: ``torch.mm``
+    on the same operands unpacked to ±1 bfloat16 — a time only; its output
+    is rounded bfloat16, not the same value."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1313)
+    worst = 0
+    shapes = ((8, 8, 2), (130, 50, 65), (1, 1, 1), (300, 257, 80),
+              (64, 64, 32), (77, 3, 304))
+    serve = {"up": (TOKENS, D_FF, D_MODEL // 32),
+             "down": (TOKENS, D_MODEL, D_FF // 32)}
+    for m, n, kb in (*shapes, *serve.values()):
+        x, w = _words(gen, m, kb), _words(gen, n, kb)
+        for kind in PG.KINDS:
+            d = _diff(PG.popcount_gemm_cuda(x, w, kind),
+                      PG.popcount_gemm_plain(x, w, kind))
+            worst = max(worst, d)
+            assert d == 0, f"popcount_gemm kernel != plain {(m, n, kb)}"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    popc_per_s = POPC_PER_CLK_SM * sms * clock_mhz * 1e6
+    timing = {}
+    for name, (m, n, kb) in serve.items():
+        x, w = _words(gen, m, kb), _words(gen, n, kb)
+        nbytes = 4 * (m * kb + n * kb + m * n)
+        t_ops = 2 * m * n * 32 * kb / INT8_OPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        xb, wb = _pm1_bf16(x, 32 * kb), _pm1_bf16(w, 32 * kb)
+        timing[name] = {
+            "ms": round(_time_ms(
+                lambda: PG.popcount_gemm_cuda(x, w, "xnor")), 6),
+            "plain_ms": round(_time_ms(
+                lambda: PG.popcount_gemm_plain(x, w, "xnor"), reps=5), 6),
+            "bound_ms": round(max(t_ops, t_bytes), 6),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "popc_bound_ms": round(m * n * kb / popc_per_s * 1e3, 6),
+            "library_ms": round(_time_ms(lambda: torch.mm(xb, wb.T)), 6),
+            "shape": {"M": m, "N": n, "KB": kb, "kind": "xnor"}}
+        del xb, wb
+    up = timing.pop("up")
+    return {"name": "popcount_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/popcount_gemm.cu",
+            "replaces": "src/repro/kernels/popcount_gemm.py:73",
+            "launches": None, "max_abs_err": float(worst), **up,
+            "down_shape": timing["down"],
+            "bound_rate": {"int8_ops_per_s": INT8_OPS_PER_S,
+                           "popc_per_clk_sm": POPC_PER_CLK_SM, "sms": sms,
+                           "max_sm_clock_mhz": clock_mhz}}
+
+
 class Counts:
     """The launch counters of every kernel, reset and read per path, and
     each path's wall time (host clock from the reset to the synchronize
     of the read)."""
 
-    def __init__(self, S, BW, BS):
-        self.S, self.dicts = S, (BW.launches, BS.launches)
+    def __init__(self, S, BW, BS, PG):
+        self.S, self.dicts = S, (BW.launches, BS.launches, PG.launches)
         self.by_path: dict[str, dict[str, int]] = {}
         self.wall_s: dict[str, float] = {}
         self._t0 = 0.0
@@ -472,6 +580,187 @@ def dram_path(counts: Counts, and16: float) -> dict:
     return out
 
 
+def quant_path(counts: Counts) -> dict:
+    """Binary linears at qwen3_4b's projection widths on 2048 tokens: up
+    (2560 -> 9728) then down (9728 -> 2560), one popcount_gemm each; the
+    integer dots held to the plain version bit for bit, the outputs within
+    1e-6 relative; then 5 STE SGD steps of the up layer against a
+    sign-teacher target (float32 products: TF32 off), the loss falling at
+    every step."""
+    from repro_torch.kernels import popcount_gemm as PG
+    from repro_torch.models import quant as Q
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    walls = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4096)
+    up = Q.BinaryLinear(D_MODEL, D_FF, generator=gen, device="cuda")
+    down = Q.BinaryLinear(D_FF, D_MODEL, generator=gen, device="cuda")
+    x = torch.randn((TOKENS, D_MODEL), generator=gen, device="cuda")
+    only = lambda c, **want: all(c[k] == want.get(k, 0) for k in c)
+    with torch.no_grad():
+        counts.reset()
+        h = up(x)
+        y = down(h)
+        c = counts.read("quant_path")
+    assert only(c, popcount_gemm=2), c
+    t1 = time.perf_counter()
+    walls["setup_and_forward_s"] = t1 - t0
+    assert y.shape == (TOKENS, D_MODEL) and bool(torch.isfinite(y).all())
+    worst_rel = 0.0
+    for layer, inp, out in ((up, x, h), (down, h, y)):
+        xq, sx = Q.binarize_pack(inp)
+        wq, sw = Q.binarize_pack(layer.weight.detach())
+        dots = PG.popcount_gemm_cuda(xq, wq, "xnor")
+        plain = PG.popcount_gemm_plain(xq, wq, "xnor")
+        assert torch.equal(dots, plain), "binary linear dots != plain"
+        pad = (-inp.shape[1]) % 32
+        want = (plain.float() - pad) * sx * sw.T
+        rel = float((out - want).abs().max() / want.abs().max())
+        worst_rel = max(worst_rel, rel)
+        assert rel <= 1e-6, rel
+    del h, y
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    walls["check_vs_plain_s"] = t2 - t1
+    # STE training: 5 SGD steps against a sign teacher (unit-variance y);
+    # the set-up timed piece by piece (host clock, synchronized)
+    def lap(name: str) -> None:
+        nonlocal t2
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls[name] = now - t2
+        t2 = now
+
+    teacher = torch.sign(torch.randn((D_FF, D_MODEL), generator=gen,
+                                     device="cuda"))
+    target = x @ teacher.T / D_MODEL ** 0.5
+    lap("teacher_and_target_s")
+    # torch.optim imports torch._dynamo lazily on an optimizer's first
+    # construction in a process: that import is this lap
+    dynamo_before = "torch._dynamo" in sys.modules
+    opt = torch.optim.SGD(up.parameters(), lr=10.0)
+    lap("optimizer_init_s")
+    walls["optimizer_init_imported_dynamo"] = (
+        not dynamo_before and "torch._dynamo" in sys.modules)
+    losses = []
+    counts.reset()
+    for _ in range(5):
+        opt.zero_grad()
+        loss = ((up(x) - target) ** 2).mean()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    with torch.no_grad():
+        losses.append(float(((up(x) - target) ** 2).mean()))
+    c = counts.read("quant_train")
+    assert only(c, popcount_gemm=6), c
+    lap("train_s")
+    print(f"[quant] STE losses {losses}", flush=True)
+    assert all(b < a for a, b in zip(losses, losses[1:])), losses
+    return {"max_rel_err": worst_rel, "ste_losses": losses, "walls": walls}
+
+
+def program_path(counts: Counts) -> dict:
+    """The binary dot product as compiled programs on the simulated banks
+    (native 8192-bit rows), held against the popcount GEMM kernel and the
+    ``kernel`` backend; the program Monte-Carlo; numpy-draw parity."""
+    from repro_torch.core import charz
+    from repro_torch.core.policy import ResidentPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.pud import workloads as W
+    from repro_torch.pud.engine import PudEngine
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(808)
+    out: dict = {}
+    only_sa = lambda c: c["senseamp_resolve"] > 0 and sum(c.values()) == \
+        c["senseamp_resolve"]
+    # dot_bitserial_tree: M = N = 128, K = 32 over 4 banks
+    x = torch.randint(0, 2, (128, 32), generator=gen, device="cuda")
+    w = torch.randint(0, 2, (128, 32), generator=gen, device="cuda")
+    for noisy in (False, True):
+        path = "program_tree_noisy" if noisy else "program_tree"
+        counts.reset()
+        got, arr = W.dot_bitserial_tree(x, w, banks=4, noisy=noisy,
+                                        device="cuda")
+        c = counts.read(path)
+        assert only_sa(c), c
+        counts.reset()
+        want = ops.popcount_gemm_bits(x, w)
+        c = counts.read(path + "_golden")
+        assert c["popcount_gemm"] == 1 and sum(c.values()) == 1, c
+        assert torch.equal(want.cpu().long(), x.cpu() @ w.cpu().T)
+        if noisy:
+            rate = float((got != want).float().mean())
+            print(f"[program] dot_bitserial_tree noisy: {rate} of the "
+                  f"(128, 128) counts differ from the kernel", flush=True)
+            assert 0.0 < rate <= 1.0, rate
+            out["tree_noisy_mismatch"] = rate
+        else:
+            assert torch.equal(got, want), "dot_bitserial_tree != kernel"
+            out["tree_makespan_ns"] = arr.makespan_ns()
+    # the dram engine, 4 banks: the dot program over (16, 1024) planes
+    # (128 row chunks in 4 blocks of 32) and an 8-bit add
+    prog = W.dot_program(8)
+    planes = {f"{s}{i}": _words(gen, 16, 1024) for s in "ab"
+              for i in range(8)}
+    a, b = _words(gen, 8, 16, 1024), _words(gen, 8, 16, 1024)
+    eng = PudEngine("dram", banks=4, device="cuda")
+    counts.reset()
+    got = eng.run_program(prog, planes)
+    total = eng.add(a, b)
+    c = counts.read("program_engine")
+    assert only_sa(c), c
+    kern = PudEngine("kernel", device="cuda")
+    want = kern.run_program(prog, planes)
+    assert all(torch.equal(got[k], want[k]) for k in want), "dram != kernel"
+    assert torch.equal(total, kern.add(a, b)), "dram add != kernel"
+    out["engine_report"] = eng.report.summary()
+    # program-level Monte-Carlo, host-staged and scheduled-resident
+    rates = {}
+    counts.reset()
+    for name in charz.PROGRAMS:
+        for pol in (ResidentPolicy.HOST, ResidentPolicy.SCHEDULED):
+            rates[f"{name}_{pol.value}"] = charz.mc_program_success(
+                name, trials=2000, row_bits=8192, resident=pol,
+                device="cuda")
+    c = counts.read("program_mc")
+    assert only_sa(c), c
+    print("[program] mc_program_success " + json.dumps(rates) + " reference "
+          + json.dumps(REF_PROGRAM_RATES), flush=True)
+    for k, r in rates.items():
+        assert abs(r - REF_PROGRAM_RATES[k]) < 0.02, (k, r)
+    out["mc_rates"] = rates
+    # numpy draws: card == CPU (program MC, resident, and the noisy tree)
+    par = {dev: (charz.mc_program_success(
+        "add4", trials=18, row_bits=512, resident=ResidentPolicy.SCHEDULED,
+        draws="numpy", device=dev),
+        W.dot_bitserial_tree(x[:4, :9].cpu(), w[:5, :9].cpu(), banks=3,
+                             row_bits=2048, noisy=True, draws="numpy",
+                             device=dev)[0].cpu())
+        for dev in ("cuda", "cpu")}
+    assert par["cuda"][0] == par["cpu"][0], par
+    assert torch.equal(par["cuda"][1], par["cpu"][1]), "tree: card != CPU"
+    print(f"[parity] program MC + noisy tree, draws=numpy: cuda == cpu "
+          f"({par['cuda'][0]})", flush=True)
+    return out
+
+
+def maj3_path(counts: Counts) -> None:
+    """``ops.maj3``, the reference's entry point of its own, once at the
+    (16384, 512) shape, held to the direct computation."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(333)
+    a, b, c3 = (_words(gen, 16384, 512) for _ in range(3))
+    counts.reset()
+    got = ops.maj3(a, b, c3)
+    c = counts.read("maj3_entry")
+    assert c["maj3"] == 1 and sum(c.values()) == 1, c
+    assert torch.equal(got, (a & b) | (c3 & (a | b))), "maj3 != direct"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on the "
@@ -484,6 +773,7 @@ def main() -> int:
     from repro_torch.kernels import bitserial as BS
     from repro_torch.kernels import bitwise as BW
     from repro_torch.kernels import build
+    from repro_torch.kernels import popcount_gemm as PG
     from repro_torch.kernels import senseamp as S
     from repro_torch.pud.engine import PudEngine
 
@@ -494,6 +784,11 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(f"[card] {card}", flush=True)
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    print(f"[card] max SM clock {clock} MHz", flush=True)
     t0 = _phase("nvidia_smi", t0, times)
 
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
@@ -505,15 +800,18 @@ def main() -> int:
           f"plain {row['plain_ms']} ms, bound {row['bound_ms']} ms "
           f"({row['bound_by']}) at {row['shape']}", flush=True)
     bit_rows = check_bitkernels(BW, BS)
+    bit_rows.append(check_popcount_gemm(PG, clock))
     for r in bit_rows:
         print(f"[{r['name']}] kernel == plain bit for bit; kernel {r['ms']} "
               f"ms, plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
               f"bound {r['bound_ms']} ms ({r['bound_by']}) at {r['shape']}",
               flush=True)
+    print("[popcount_gemm] down shape "
+          + json.dumps(bit_rows[-1]["down_shape"]), flush=True)
     t0 = _phase("kernel_vs_plain", t0, times)
 
     # ---- main path: the launch count covers exactly these calls ----
-    counts = Counts(S, BW, BS)
+    counts = Counts(S, BW, BS, PG)
     counts.reset()
     rates, peak = {}, {}
     for op in charz.OPS:
@@ -593,6 +891,15 @@ def main() -> int:
     assert abs(sampled - closed) < 0.01, (sampled, closed)
     print(f"[sampler] and16 sampled {sampled} closed {closed}", flush=True)
     t0 = _phase("sampler", t0, times)
+
+    # ---- the binary dot product: binary linears, then bank programs ----
+    quant_out = quant_path(counts)
+    print("[quant] " + json.dumps(quant_out), flush=True)
+    t0 = _phase("quant_path", t0, times)
+    prog_out = program_path(counts)
+    print("[program] " + json.dumps(prog_out), flush=True)
+    maj3_path(counts)
+    t0 = _phase("program_path", t0, times)
     print("[times] " + json.dumps(times), flush=True)
 
     rows = [row, *bit_rows]

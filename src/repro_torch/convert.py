@@ -11,6 +11,10 @@ The PuD engine holds no state to carry: a packed bit-plane of the reference
 (uint32 words) crosses over as
 ``torch.from_numpy(np.asarray(p).view(np.int32))`` — the port's planes are
 int32 bit patterns (``repro_torch.pud.engine.as_planes`` does this).
+
+The binary linear layers do hold weights: :func:`binary_linear_from_numpy`
+turns the reference's ``{"w": (out, in)}`` parameters, as numpy arrays,
+into the port's :class:`~repro_torch.models.quant.BinaryLinear`.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import numpy as np
 import torch
 
 from .core.analog import AnalogParams
-from .core.simulator import BankSim
+from .core.simulator import BankSim, resolve_device
+from .models.quant import BinaryLinear
 
 #: constructor settings of the bank, then its mutable state
 SETTINGS = ("module", "row_bits", "trials", "error_model", "temp_c",
@@ -67,3 +72,19 @@ def bank_state_from_numpy(state: dict, device: str | torch.device, *,
                    for s, (a, b) in state["_static"].items()}
     sim._trial = int(state["_trial"])
     return sim
+
+
+def binary_linear_from_numpy(p: dict,
+                             device: str | torch.device = "cuda"
+                             ) -> BinaryLinear:
+    """The port's :class:`BinaryLinear` on ``device`` holding the weights of
+    a reference binary linear layer: ``p["w"]`` is its (out, in) weight as
+    a numpy array (``np.asarray`` of the reference's parameter)."""
+    w = np.asarray(p["w"], dtype=np.float32)
+    if w.ndim != 2:
+        raise ValueError(f"want an (out, in) weight, got shape {w.shape}")
+    dev = resolve_device(device)
+    layer = BinaryLinear(w.shape[1], w.shape[0], device=dev)
+    with torch.no_grad():
+        layer.weight.copy_(torch.from_numpy(w))
+    return layer

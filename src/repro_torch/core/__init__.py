@@ -3,9 +3,11 @@
 device, analog, decoder — host-side models, copied from the reference
 simulator  — trial-batched bank with its cell state on the device
 isa        — PuD instructions over the torch bank
-bankarray  — per-bank chips behind one device-addressed API
+bankarray  — per-bank chips behind one device-addressed API, cross-bank
+             reduction tree
 charz      — the Monte-Carlo characterization (Figs. 7 / 15)
-compiler   — Boolean-expression compiler, front half (DSL, lowering, oracle)
+compiler   — Boolean-expression compiler: DSL, lowering, oracle, run_sim and
+             the resident planner / executor
 policy     — ResidentPolicy + EngineConfig (copied from the reference)
 analog_torch — closed-form tables and one-call samplers on torch
 """

@@ -14,23 +14,34 @@ DRAM Bender methodology.  Activation pairs are stratified over the 3x3
 * ``"numpy"``: the reference's numpy streams, draw for draw, copied to the
   device — results equal the reference's bit for bit.
 
+Program-level characterization (:func:`mc_program_success`) measures the
+same statistic one level up: whole compiled programs (XOR from NANDs, MAJ3,
+ripple-carry adders) on the noisy bank through ``compiler.run_sim``,
+host-staged or resident.
+
 Every entry point takes ``device=`` (default ``"cuda"``).  Not ported yet:
 the fused multi-bank path (``fused=True`` raises; with ``banks > 1`` the
 default runs the per-bank loop, which the reference's fused path matches
-bit for bit), the modeled-timing ``stats=`` (it needs ``repro.analysis``)
-and the program-level Monte-Carlo.
+bit for bit), the modeled-timing ``stats=`` (it needs ``repro.analysis``),
+the workload-level Monte-Carlo (``mc_workload_success``,
+``workload_fanin_sweep``) and the closed-form-only figure drivers other
+than Figs. 7 and 15.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from functools import lru_cache
+
 from . import analog as A
+from . import compiler as CC
 from .analog import CLOSE, FAR, MIDDLE
 from .bankarray import BankArray
 from . import decoder as DEC
 from .device import get_module
 from .isa import CapabilityError, PudIsa
+from .policy import ResidentPolicy, coerce_resident
 from .simulator import DRAWS, BankSim, resolve_device, torch_seed
 
 REGION_NAMES = {CLOSE: "close", MIDDLE: "middle", FAR: "far"}
@@ -352,6 +363,124 @@ def measure_cell_map_not(*, trials: int = 200, row_bits: int = 2048,
         hits += (got == 1 - bits)[:take].sum(dim=0)
         done += take
     return hits.to(torch.float64) / trials
+
+
+# ---------------------------------------------------------------------------
+# Program-level Monte-Carlo (composed operations through the executor)
+# ---------------------------------------------------------------------------
+#: headline compiled programs for program-level characterization
+PROGRAMS = ("xor", "maj3", "add4")
+
+#: workload-level compiled programs (bloom dedup + bit-serial dot
+#: product); a trailing integer parameterizes them (``bloom_probe8`` =
+#: 8-hash probe, ``dot_bitserial8`` = K=8 dot)
+WORKLOAD_PROGRAMS = ("bloom_probe", "bloom_insert", "dot_bitserial")
+
+
+@lru_cache(maxsize=64)
+def get_program(name: str) -> CC.Program:
+    """Compile one of the named characterization/workload programs."""
+    if name == "xor":
+        return CC.compile_expr(CC.Xor(CC.Var("a"), CC.Var("b")))
+    if name == "maj3":
+        return CC.compile_expr(CC.Maj(CC.Var("a"), CC.Var("b"), CC.Var("c")))
+    if name.startswith("bloom_probe"):
+        return CC.compile_expr(
+            CC.bloom_probe_exprs(int(name[11:] or 4)))
+    if name.startswith("bloom_insert"):
+        return CC.compile_expr(
+            CC.bloom_insert_exprs(int(name[12:] or 4)))
+    if name.startswith("dot_bitserial"):
+        return CC.compile_expr(CC.dot_exprs(int(name[13:] or 4)))
+    if name.startswith("add"):
+        return CC.compile_expr(CC.adder_exprs(int(name[3:])))
+    raise ValueError(f"unknown program {name!r} (want one of "
+                     f"{PROGRAMS + WORKLOAD_PROGRAMS})")
+
+
+def mc_program_success(program: str | CC.Program, *, trials: int = 200,
+                       row_bits: int = 2048, seed: int = 0,
+                       module: str | None = None, temp_c: float = 50.0,
+                       batched: bool = True,
+                       resident: ResidentPolicy | bool | str | None = None,
+                       banks: int = 1, groups: int = MC_PAIR_GROUPS,
+                       fused: bool | None = None,
+                       dealer: str = "round_robin",
+                       stats: dict | None = None, draws: str = "device",
+                       device: str | torch.device = "cuda") -> float:
+    """Bit-averaged MC success of a whole compiled program on the noisy
+    bank: every output bit of every trial is compared against
+    ``compiler.run_ideal`` on the same random inputs.
+
+    ``batched=True`` (default) splits the trials over ``groups``
+    trial-batched ``compiler.run_sim`` episodes; the ISA's scrambled pair
+    walk advances across groups.  ``batched=False`` is the per-trial
+    reference (one program execution per trial on a scalar sim).
+    ``resident`` (a :class:`~repro_torch.core.policy.ResidentPolicy`)
+    routes execution through the resident-register executor; under
+    ``SCHEDULED`` the search runs once (memoized) and later groups replan
+    with the frozen decisions.  ``banks`` deals the groups over a
+    :class:`BankArray` (``dealer``); sibling banks replay bank 0's
+    scheduler decisions.
+    """
+    _check_unported(fused, stats)
+    prog = get_program(program) if isinstance(program, str) else program
+    pol = coerce_resident(resident, where="charz.mc_program_success")
+    names = sorted({i.name for i in prog.instrs if i.op == "input"})
+    dev = resolve_device(device)
+    draw = _Operands(seed, draws, dev)
+    ok = 0
+    tot = 0
+    if pol.is_resident and not batched:
+        raise ValueError("resident execution requires batched=True")
+    banks = _check_banks(banks, batched=batched)
+
+    def score(got: dict, ins: dict, width: int) -> None:
+        nonlocal ok, tot
+        want = CC.run_ideal(prog, ins, width=width)
+        ok += sum(_hits(got[k], want[k]) for k in prog.outputs)
+        tot += sum(got[k].numel() for k in prog.outputs)
+
+    if batched:
+        groups = max(1, min(groups, trials))
+        tg = max(1, -(-trials // groups))
+        arr = BankArray(module or get_module(), banks=banks,
+                        row_bits=row_bits, seed=seed, temp_c=temp_c,
+                        error_model="analog", trials=tg,
+                        track_unshared=False, draws=draws, device=dev)
+        decisions = None
+        for bank_g in _deal_groups(arr, groups, dealer):
+            isa = arr.isa(bank_g)
+            plan = None
+            if pol.is_resident:
+                isa.sim.recycle_rows()  # resident runs re-stage all state
+                if pol is ResidentPolicy.SCHEDULED:
+                    if isa.bank == 0:
+                        # the search result is cached: group 1 pays it,
+                        # later groups replan with frozen decisions
+                        plan = CC.schedule_resident(prog, isa,
+                                                    policy="scheduled")
+                    else:
+                        # sibling banks replay bank 0's decisions
+                        if decisions is None:
+                            decisions = CC.shared_schedule_decisions(
+                                prog, arr.isa(0))
+                        plan = CC.schedule_resident(prog, isa,
+                                                    policy="scheduled",
+                                                    _fixed=decisions)
+            ins = {n: draw.bits((tg, isa.width)) for n in names}
+            got = CC.run_sim(prog, ins, isa, trials=tg, resident=pol,
+                             plan=plan)
+            score(got, ins, isa.width)
+        return ok / tot
+    sim = BankSim(module or get_module(), row_bits=row_bits, seed=seed,
+                  temp_c=temp_c, error_model="analog", draws=draws,
+                  device=dev)
+    isa = PudIsa(sim)
+    for _t in range(trials):
+        ins = {n: draw.bits((isa.width,)) for n in names}
+        score(CC.run_sim(prog, ins, isa), ins, isa.width)
+    return ok / tot
 
 
 # ---------------------------------------------------------------------------

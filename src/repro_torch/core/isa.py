@@ -83,6 +83,10 @@ class PairInventory:
         """(P, 2) array of (R_F, R_L) rows realizing n_rf:n_rl activation."""
         return self._pairs.get((n_rf, n_rl), np.zeros((0, 2), dtype=np.int64))
 
+    def coverage(self, n_rf: int, n_rl: int) -> float:
+        n = self.module.geometry.rows_per_subarray
+        return len(self.pairs(n_rf, n_rl)) / float(n * n)
+
     def choose(self, n_rf: int, n_rl: int, k: int = 0) -> tuple[int, int]:
         ps = self.pairs(n_rf, n_rl)
         if len(ps) == 0:
@@ -108,6 +112,22 @@ def inventory_for(module: ModuleConfig, seed: int = 0) -> PairInventory:
 # ---------------------------------------------------------------------------
 # Cost model
 # ---------------------------------------------------------------------------
+#: plan-search objectives: what the scheduler's dup-vs-spill gates
+#: minimize.  ``energy`` (the default) gates on pJ, ``latency`` on the
+#: per-bank serial ns of the same log-exact command constants.
+OBJECTIVES = ("energy", "latency")
+
+
+def metric_index(objective: str) -> int:
+    """Index of one objective's metric in the ``log_*`` (time, energy)
+    twin tuples: 0 picks ``time_ns`` for ``latency``, 1 ``energy_pj``
+    for ``energy``."""
+    if objective not in OBJECTIVES:
+        raise ValueError(f"unknown objective {objective!r}; "
+                         f"expected one of {OBJECTIVES}")
+    return 0 if objective == "latency" else 1
+
+
 @dataclass
 class OpCost:
     time_ns: float = 0.0
@@ -123,14 +143,23 @@ class OpCost:
         return OpCost(self.time_ns * k, self.energy_pj * k,
                       int(self.commands * k), int(self.bus_bytes * k))
 
+    def metric(self, objective: str = "energy") -> float:
+        """This cost's scalar under one plan-search objective."""
+        return self.time_ns if metric_index(objective) == 0 \
+            else self.energy_pj
+
 
 class CostModel:
     """DDR4 command-sequence costs of logical PuD ops (per bank).
 
     All in-DRAM ops are row-granular: one op processes ``shared_w`` bits
     (half a row per chip; x8 chips in lock-step process 8x that per rank).
-    The command-log twins (``log_*``) of the reference come with the
-    compiler's execution half.
+
+    The ``log_*`` twins reproduce the exact per-command constants the
+    simulator books into ``BankSim.log``: a static
+    :class:`~repro_torch.core.compiler.ResidentPlan` predicts the measured
+    command log with them, and they adjudicate the scheduler's
+    duplication-vs-spill decisions.
     """
 
     def __init__(self, module: ModuleConfig | None = None, *,
@@ -194,6 +223,50 @@ class CostModel:
     def op_not(self, n_dst: int = 1) -> OpCost:
         return self._apa(1 + n_dst, first_restored=True)
 
+    # ---- command-log twins (measured-cost reconciliation) --------------
+    # ``BankSim.log`` books each DDR4 command at on-die cost (no off-chip
+    # IO terms); these are the same per-command (time_ns, energy_pj).
+    def _n_bursts(self) -> int:
+        return self.row_bits // 512   # sim-log convention (0 for tiny rows)
+
+    def log_write(self) -> tuple[float, float]:
+        t = self.t
+        return (t.tRCD + t.tWR + t.tRP,
+                ENERGY_PJ["act"] + ENERGY_PJ["pre"]
+                + self._n_bursts() * ENERGY_PJ["wr_per_64B"])
+
+    def log_read(self) -> tuple[float, float]:
+        t = self.t
+        return (t.tRCD + t.tCL + t.tRP,
+                ENERGY_PJ["act"] + ENERGY_PJ["pre"]
+                + self._n_bursts() * ENERGY_PJ["rd_per_64B"])
+
+    def log_rowclone(self) -> tuple[float, float]:
+        t = self.t
+        return (t.tRAS + VIOLATED_TRP_NS + t.tRAS + t.tRP,
+                2 * ENERGY_PJ["act"] + 2 * ENERGY_PJ["pre"])
+
+    def log_frac(self) -> tuple[float, float]:
+        t = self.t
+        return (2 * (VIOLATED_TRAS_NS + t.tRP),
+                2 * (ENERGY_PJ["act"] + ENERGY_PJ["pre"]))
+
+    def log_apa(self, n_acts: int, *,
+                first_restored: bool = False) -> tuple[float, float]:
+        t = self.t
+        t_first = t.tRAS if first_restored else VIOLATED_TRAS_NS
+        return (t_first + VIOLATED_TRP_NS + t.tRAS + t.tRP,
+                n_acts * ENERGY_PJ["act"] + 2 * ENERGY_PJ["pre"])
+
+    def io_adjustment(self, io_rows: int) -> tuple[float, float, int]:
+        """Off-chip burst time/energy + bus bytes for ``io_rows`` WR/RD
+        rows — the same per-row terms ``PudEngine._account_sim_log`` adds
+        on top of the on-die command log."""
+        nb = max(self.row_bits // 8 // 64, 1)
+        return (io_rows * nb * 4 * self.t.tCK,
+                io_rows * nb * ENERGY_PJ["io_per_64B"],
+                io_rows * (self.row_bits // 8))
+
     def cpu_baseline(self, n: int, rows: int = 1) -> OpCost:
         """Processor-centric baseline: read N operand rows over the bus,
         compute on CPU, write one result row back."""
@@ -214,6 +287,12 @@ class IsaStats:
     fracs: int = 0
     writes: int = 0
     reads: int = 0
+    #: polarity spills: host RD round-trips of resident registers the
+    #: resident executor took (the quantity the scheduler minimizes)
+    spills: int = 0
+    #: producer duplications: extra in-bank APAs the scheduled planner
+    #: took instead of polarity spills
+    duplications: int = 0
     cost: OpCost = field(default_factory=OpCost)
 
 
@@ -246,6 +325,9 @@ class PudIsa:
         # the same column sets as contiguous storage-layout slices
         _lo, self._f_sl, self._l_sl = sim._col_slices(self.f_sub, self.l_sub)
         self._pair_cursor: dict[tuple[int, int], int] = {}
+        #: the most recent ResidentPlan executed through this ISA (set by
+        #: the compiler's resident executor)
+        self.last_resident_plan = None
 
     # ---------------- word packing ----------------
     @property

@@ -17,9 +17,10 @@ bool/str) coerce through :func:`coerce_resident`, which emits a
 enum; enum members never warn.
 
 Differences from the reference: the backends are the port's
-(``"torch"``, ``"kernel"``, ``"dram"``; default ``"kernel"``), and
-:meth:`EngineConfig.resolved_verify` raises until ``repro.analysis`` (the
-plan verifier) is ported.
+(``"torch"``, ``"kernel"``, ``"dram"``; default ``"kernel"``), and the
+static plan verifier (``repro.analysis``) is not ported yet, so
+:meth:`EngineConfig.resolved_verify` resolves ``None`` to ``False`` (plan
+without verifying) and a plan made under ``verify=True`` raises.
 """
 from __future__ import annotations
 
@@ -111,8 +112,9 @@ class EngineConfig:
     chips (the other backends have no banks).  ``fused`` is the multi-bank
     fused-execution tri-state of the reference (``None`` auto, ``False``
     per-bank loop, ``True`` forced).  ``verify`` is the static
-    plan-verification tri-state (``None`` defers to the verifier's
-    default).
+    plan-verification tri-state: ``None`` and ``False`` plan without
+    verifying; ``True`` raises when a resident plan is made (the verifier
+    is not ported yet, ROADMAP A-5).
     """
 
     backend: str = "kernel"
@@ -149,12 +151,9 @@ class EngineConfig:
                 else ResidentPolicy.HOST)
 
     def resolved_verify(self) -> bool:
-        """The effective plan-verification switch (see ``verify``)."""
-        if self.verify is not None:
-            return self.verify
-        raise NotImplementedError(
-            "verify=None defers to repro.analysis.default_verify, and the "
-            "plan verifier is not ported yet (ROADMAP A-5)")
+        """The effective plan-verification switch (see ``verify``):
+        ``None`` resolves to ``False`` until the verifier is ported."""
+        return bool(self.verify)
 
     def with_(self, **changes) -> "EngineConfig":
         """A copy with the given fields replaced (frozen-friendly)."""

@@ -2,8 +2,8 @@
 // (sm_90a).
 //
 // Replaces the Pallas TPU kernels repro/kernels/bitwise.py::nary_bitwise
-// (AND / OR / NAND / NOR / XOR across the N planes of an (N, R, C) stack)
-// and ::bitwise_not.  The TPU version cuts the planes into (8, 512) tiles
+// (AND / OR / NAND / NOR / XOR across the N planes of an (N, R, C) stack),
+// ::bitwise_not and ::maj3 (the bitwise 3-input majority of three planes).  The TPU version cuts the planes into (8, 512) tiles
 // and pads R and C up to them; here the planes are flat streams of L = R*C
 // 32-bit words and one thread owns one 16-byte vector (4 words) of every
 // plane, or one word when L is not a multiple of 4, so neighbouring threads
@@ -12,8 +12,9 @@
 // template argument, so the loop body is one logic instruction per word.
 //
 // Bound on an H100: bytes.  Per output word it reads N words and writes
-// one, with N - 1 logic operations (plus one NOT for NAND/NOR): far below
-// the card's integer rate per byte moved.
+// one, with N - 1 logic operations (plus one NOT for NAND/NOR; four for
+// MAJ3's (a & b) | (c & (a | b)) over three words): far below the card's
+// integer rate per byte moved.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,6 +62,17 @@ __global__ void not_kernel(const V* __restrict__ in, int64_t len,
   for (int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; k < len;
        k += (int64_t)gridDim.x * blockDim.x)
     out[k] = ~in[k];
+}
+
+template <typename V>
+__global__ void maj3_kernel(const V* __restrict__ a, const V* __restrict__ b,
+                            const V* __restrict__ c, int64_t len,
+                            V* __restrict__ out) {
+  for (int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; k < len;
+       k += (int64_t)gridDim.x * blockDim.x) {
+    const V x = a[k], y = b[k], z = c[k];
+    out[k] = (x & y) | (z & (x | y));
+  }
 }
 
 constexpr int kThreads = 256;
@@ -120,6 +132,21 @@ extern "C" int bitwise_not(const uint32_t* in, int64_t words, uint32_t* out,
   } else {
     not_kernel<uint32_t><<<grid_for(words), kThreads, 0, s>>>(in, words,
                                                                 out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int maj3(const uint32_t* a, const uint32_t* b, const uint32_t* c,
+                    int64_t words, uint32_t* out, void* stream) {
+  if (words == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec_ok(a, out, words) && vec_ok(b, c, words)) {
+    const int64_t len = words / 4;
+    maj3_kernel<uint4><<<grid_for(len), kThreads, 0, s>>>(
+        (const uint4*)a, (const uint4*)b, (const uint4*)c, len, (uint4*)out);
+  } else {
+    maj3_kernel<uint32_t><<<grid_for(words), kThreads, 0, s>>>(a, b, c,
+                                                                words, out);
   }
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,11 @@ per Boolean APA; :func:`senseamp_resolve` / :func:`senseamp_resolve_trials`
 are the slab front ends of the reference's ``repro.kernels.ops``, served by
 the same kernel with identity slot indices.  ``repro_torch.pud.engine``'s
 ``kernel`` backend calls the plane ops: :func:`nary_bitwise`,
-:func:`bitwise_not`, :func:`add_planes` and :func:`bitcount_planes`.
+:func:`bitwise_not`, :func:`add_planes` and :func:`bitcount_planes`;
+``repro_torch.models.quant`` the binary GEMM :func:`popcount_gemm`;
+:func:`popcount_gemm_bits` is the golden twin of the bank-executed dot
+product (``repro_torch.pud.workloads``); :func:`maj3` is an entry point of
+its own.
 """
 from __future__ import annotations
 
@@ -15,13 +19,15 @@ import torch
 
 from . import bitserial as _bitserial
 from . import bitwise as _bitwise
+from . import popcount_gemm as _pcg
 from . import ref  # re-exported for tests
 from . import senseamp as _senseamp
 from .ref import pack_bits, unpack_bits
 
-__all__ = ["add_planes", "bitcount_planes", "bitwise_not", "nary_bitwise",
-           "nary_bitwise_bits", "pack_bits", "ref", "senseamp_gather",
-           "senseamp_resolve", "senseamp_resolve_trials", "unpack_bits"]
+__all__ = ["add_planes", "bitcount_planes", "bitwise_not", "maj3",
+           "nary_bitwise", "nary_bitwise_bits", "pack_bits", "popcount_gemm",
+           "popcount_gemm_bits", "ref", "senseamp_gather", "senseamp_resolve",
+           "senseamp_resolve_trials", "unpack_bits"]
 
 
 def _route(x: torch.Tensor, cuda, plain):
@@ -85,6 +91,11 @@ def bitwise_not(plane: torch.Tensor) -> torch.Tensor:
                   _bitwise.bitwise_not_plain)(plane)
 
 
+def maj3(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Bitwise 3-input majority of three (R, C) packed int32 planes."""
+    return _route(a, _bitwise.maj3_cuda, _bitwise.maj3_plain)(a, b, c)
+
+
 def add_planes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(K, R, C) + (K, R, C) packed planes, LSB first -> (K+1, R, C)."""
     return _route(a, _bitserial.add_planes_cuda,
@@ -104,3 +115,39 @@ def nary_bitwise_bits(bit_vectors: torch.Tensor, op: str) -> torch.Tensor:
     bv = torch.nn.functional.pad(bit_vectors, (0, (-w) % 32))
     out = nary_bitwise(pack_bits(bv)[:, None, :], op)     # (1, B)
     return unpack_bits(out)[0, :w]
+
+
+def popcount_gemm(x: torch.Tensor, w: torch.Tensor, *,
+                  kind: str = "and") -> torch.Tensor:
+    """(M, KB) x (N, KB) packed int32 -> (M, N) int32 binary GEMM:
+    ``Σ popcount(x & w)`` ("and") or ``32·KB − 2·Σ popcount(x ^ w)``
+    ("xnor")."""
+    return _route(x, _pcg.popcount_gemm_cuda,
+                  _pcg.popcount_gemm_plain)(x, w, kind)
+
+
+def popcount_gemm_bits(x_bits, w_bits, *, kind: str = "and",
+                       device=None) -> torch.Tensor:
+    """Binary GEMM over unpacked {0,1} matrices: (M, K) x (N, K) -> (M, N).
+
+    Packs both operands (K zero-padded to a multiple of 32) and calls
+    :func:`popcount_gemm`.  ``kind="and"`` is padding-safe as packed;
+    ``kind="xnor"`` subtracts the pad bits, which XNOR to 1 on both sides
+    (the reference's correction).  The golden twin of the bank-executed
+    dot product.  Runs on ``device``; by default on that of a tensor
+    ``x_bits``, else on the card (``device="cpu"`` for the plain
+    version)."""
+    from ..core.simulator import resolve_device
+    if device is None:
+        device = (x_bits.device if isinstance(x_bits, torch.Tensor)
+                  else "cuda")
+    dev = resolve_device(device)
+    x = torch.as_tensor(x_bits, device=dev).to(torch.uint8)
+    w = torch.as_tensor(w_bits, device=dev).to(torch.uint8)
+    pk = (-x.shape[1]) % 32
+    xq = pack_bits(torch.nn.functional.pad(x, (0, pk)))
+    wq = pack_bits(torch.nn.functional.pad(w, (0, pk)))
+    out = popcount_gemm(xq, wq, kind=kind)
+    if kind == "xnor" and pk:
+        out = out - pk
+    return out

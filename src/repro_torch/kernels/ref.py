@@ -1,8 +1,7 @@
 """Plain PyTorch oracles of the reference kernels (``repro.kernels.ref``).
 
 They keep the reference's own formulas and operation order, so the port's
-tests can hold them against ``repro.kernels.ref`` exactly.  The popcount
-GEMM and ``maj3`` oracles come with their kernels.
+tests can hold them against ``repro.kernels.ref`` exactly.
 
 Packed words are ``int32`` bit patterns: on PyTorch 2.13 ``~`` and ``>>``
 raise on ``torch.uint32``.  ``words.numpy().view(np.uint32)`` gives the
@@ -42,6 +41,11 @@ def not_(plane: torch.Tensor) -> torch.Tensor:
     return ~plane
 
 
+def maj3(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Bitwise 3-input majority of packed words."""
+    return (a & b) | (c & (a | b))
+
+
 def bitcount_planes(planes: torch.Tensor) -> torch.Tensor:
     """Per-bit-position popcount across N planes -> bit-sliced counter:
     (N, ...) -> (max(1, N.bit_length()), ...) counter planes, LSB first."""
@@ -69,6 +73,53 @@ def add_planes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         outs.append(s)
     outs.append(carry)
     return torch.stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# 1-bit (packed) GEMM: AND / XNOR + popcount
+# ---------------------------------------------------------------------------
+#: bytes the plain GEMM's (m, N, KB) intermediates may take per M chunk
+GEMM_CHUNK_BYTES = 1 << 30
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Per-word popcount of int32 bit patterns -> int32 in 0..32.
+
+    SWAR on int32, masked after every ``>>`` (int32 ``>>`` is arithmetic).
+    The sign bit is counted apart, so no partial sum leaves the
+    non-negative int32 range."""
+    y = x & 0x7FFFFFFF
+    y = (y & 0x55555555) + ((y >> 1) & 0x55555555)
+    y = (y & 0x33333333) + ((y >> 2) & 0x33333333)
+    y = (y + (y >> 4)) & 0x0F0F0F0F
+    y = y + (y >> 8)
+    y = (y + (y >> 16)) & 0x3F
+    return y + (x < 0).to(torch.int32)
+
+
+def popcount_gemm(x: torch.Tensor, w: torch.Tensor,
+                  kind: str = "and") -> torch.Tensor:
+    """x: (M, KB) int32, w: (N, KB) int32 packed words -> (M, N) int32.
+
+    kind="and":  out[m,n] = sum_b popcount(x[m,b] & w[n,b])
+    kind="xnor": out[m,n] = 32·KB - 2 * sum_b popcount(x[m,b] ^ w[n,b])
+    Chunked over M so the (m, N, KB) intermediates stay under
+    :data:`GEMM_CHUNK_BYTES`."""
+    if kind not in ("and", "xnor"):
+        raise ValueError(kind)
+    m, kb = x.shape
+    n = w.shape[0]
+    # the masked word, its popcount and two SWAR temporaries are alive
+    step = max(1, GEMM_CHUNK_BYTES // max(1, 16 * n * kb))
+    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    wa = w[None]
+    for lo in range(0, m, step):
+        xa = x[lo:lo + step, None, :]
+        both = xa & wa if kind == "and" else xa ^ wa
+        out[lo:lo + step] = popcount32(both).sum(-1, dtype=torch.int32)
+    if kind == "xnor":
+        out = 32 * kb - 2 * out
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -29,10 +29,18 @@ round-robin), with a fresh noise stream per block — the reference's
 per-bank loop.  The reference's fused multi-bank rounds are bit-identical
 to that loop, so ``fused=None`` runs the loop and ``fused=True`` raises.
 
-Not ported yet (ROADMAP A-5): ``run_program`` and ``add`` on ``dram`` (they
-need the compiler's ``run_sim`` / resident executor) and
-:meth:`PudEngine.schedule_timing` (needs ``repro.analysis``); they raise
-``NotImplementedError``.
+Compiled programs (``run_program``, and ``add`` through the synthesized
+adder) run on the ``dram`` backend chunk-blocked through the trial-batched
+program executor (``compiler.run_sim``), by default the scheduled
+resident-register executor: intermediates chain in-bank via RowClone, and
+chunk blocks of one (bank, size) chain through a ``ResidentSession``
+(constant rows and pinned input words stay in the bank between blocks).
+Under the scheduled policy bank 0 runs the planner search and sibling
+banks replay its frozen decisions.  ``verify=True`` raises: the static
+plan verifier is not ported yet.
+
+Not ported yet (ROADMAP): :meth:`PudEngine.schedule_timing` (needs
+``repro.analysis``) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,9 +59,6 @@ from ..core.simulator import BankSim, resolve_device
 from ..kernels import ops as kops
 
 BACKENDS = ("torch", "kernel", "dram")
-
-_A5 = "not ported yet (ROADMAP A-5: the compiler's execution half)"
-
 
 @lru_cache(maxsize=16)
 def _adder_program(k: int) -> CC.Program:
@@ -216,8 +221,7 @@ class PudEngine:
         self.report = OffloadReport()
         self.noisy = noisy
         self.seed = seed
-        #: how compiled programs would execute on the dram backend (the
-        #: resident executors are not ported yet)
+        #: how compiled programs execute on the dram backend
         self.policy = coerce_resident(
             resident, where="PudEngine",
             default=(ResidentPolicy.SCHEDULED if backend == "dram"
@@ -228,9 +232,17 @@ class PudEngine:
             else None, noisy=noisy, seed=seed, resident=self.policy,
             chain_blocks=chain_blocks, banks=banks, fused=fused,
             verify=verify)
+        #: dram backend: chain residency across same-size chunk blocks
+        #: (ResidentSession); False re-stages every block
+        self.chain_blocks = chain_blocks
         #: dram backend: number of independent banks chunk blocks are
         #: dealt across (round-robin); other backends have no banks
         self.banks = banks
+        #: static plan-verification tri-state for the resident plans the
+        #: dram backend schedules: ``None`` / ``False`` plan without
+        #: verifying, ``True`` raises when a plan is made (the verifier is
+        #: not ported yet)
+        self.verify = verify
         self._isa: PudIsa | None = None
         self._array: BankArray | None = None
         if backend == "dram":
@@ -254,17 +266,21 @@ class PudEngine:
     def _planes(self, x) -> torch.Tensor:
         return as_planes(x, self.device)
 
-    def _isa_for(self, n_chunks: int, *, bank: int = 0) -> PudIsa:
+    def _isa_for(self, n_chunks: int, *, recycle: bool = True,
+                 bank: int = 0) -> PudIsa:
         """ISA for one chunk block on one bank: a trial-batched BankSim
         with ``n_chunks`` trials (cached per (bank, batch size);
         single-chunk work uses the bank's scalar sim), reseeded onto an
-        independent noise stream and with its row slots recycled."""
+        independent noise stream and, unless ``recycle=False`` (a chained
+        block reusing rows an earlier block of its session left), with its
+        row slots recycled."""
         if n_chunks <= 1:
             isa = self._array.isa(bank)
         else:
             isa = self._array.isa(bank, n_chunks, track_unshared=False)
         isa.sim.reseed_noise(self._array.next_noise_seed(bank))
-        isa.sim.recycle_rows()
+        if recycle:
+            isa.sim.recycle_rows()
         return isa
 
     # ------------- accounting -------------
@@ -359,15 +375,21 @@ class PudEngine:
     def add(self, a, b) -> torch.Tensor:
         """Bit-serial adder: (K, R, C) + (K, R, C) -> (K+1, R, C).
 
-        torch/kernel run the fused ripple-carry (oracle or kernel) and
-        meter the synthesized native instruction stream
-        (``compiler.adder_exprs``), as every backend of the reference does.
+        torch/kernel run the fused ripple-carry (oracle or kernel); the
+        dram backend runs the adder synthesized from the native op set
+        (``compiler.adder_exprs``) through :meth:`run_program`.  Every
+        backend meters that synthesized instruction stream.
         """
-        if self.backend == "dram":
-            raise NotImplementedError(f"add on the dram backend is {_A5}")
         a, b = self._planes(a), self._planes(b)
         k, r, c = a.shape
-        self._meter_program(_adder_program(k), r * c * 32)
+        prog = _adder_program(k)
+        if self.backend == "dram":
+            planes = {f"a{i}": a[i] for i in range(k)} \
+                | {f"b{i}": b[i] for i in range(k)}
+            out = self.run_program(prog, planes)
+            return torch.stack([*(out[f"s{i}"] for i in range(k)),
+                                out["cout"]])
+        self._meter_program(prog, r * c * 32)
         if self.backend == "kernel":
             return kops.add_planes(a, b)
         return kops.ref.add_planes(a, b)
@@ -398,9 +420,12 @@ class PudEngine:
         """Execute a compiled :class:`~repro_torch.core.compiler.Program`
         over packed ``(R, C)`` planes: each instruction on whole planes
         (torch ops, or one kernel launch per compute instruction on the
-        ``kernel`` backend).  ``planes`` maps the program's input names to
-        equal-shape planes; returns one plane per program output.  Every
-        compute instruction is metered into the :class:`OffloadReport`.
+        ``kernel`` backend), or, on ``dram``, chunk-blocked through the
+        program executor on the simulated bank (see
+        :meth:`_dram_run_program`).  ``planes`` maps the program's input
+        names to equal-shape planes; returns one plane per program output.
+        Every compute instruction is metered into the
+        :class:`OffloadReport`.
 
         >>> from repro_torch.core import compiler as CC
         >>> prog = CC.compile_expr(CC.Xor(CC.Var("a"), CC.Var("b")))
@@ -412,9 +437,6 @@ class PudEngine:
         >>> eng.report.ops                      # 4 NANDs were metered
         4
         """
-        if self.backend == "dram":
-            raise NotImplementedError(
-                f"run_program on the dram backend is {_A5}")
         if not planes:
             raise ValueError("run_program needs at least one input plane")
         named = {k: self._planes(v) for k, v in planes.items()}
@@ -429,6 +451,8 @@ class PudEngine:
                 f"program inputs missing from planes: {sorted(missing)}")
         r, c = shape
         self._meter_program(prog, r * c * 32)
+        if self.backend == "dram":
+            return self._dram_run_program(prog, named, shape)
         kernel = self.backend == "kernel"
         regs: dict[int, torch.Tensor] = {}
         for i in prog.instrs:
@@ -448,6 +472,95 @@ class PudEngine:
             else:
                 raise ValueError(i.op)
         return {k: regs[v] for k, v in prog.outputs.items()}
+
+    def _dram_run_program(self, prog: CC.Program, planes: dict,
+                          shape: tuple) -> dict[str, torch.Tensor]:
+        """Chunk-blocked program execution on the simulated bank: each
+        block of row chunks runs the whole program as one trial-batched
+        ``compiler.run_sim`` episode, through the engine's resident policy
+        (host-staged under ``HOST``).
+
+        Resident mode chains residency across blocks (``chain_blocks``):
+        blocks of one (bank, size) share a ``compiler.ResidentSession``,
+        so the constant rows block k staged stay in the bank for block
+        k+1, and under the scheduled policy a block whose input word equals
+        the previous block's RowClones the pinned row.  Every block still
+        gets its own noise stream.  An input plane whose row chunks are all
+        identical (a broadcast operand) is handed to each block as one
+        ``(w,)`` word.  Blocks are dealt round-robin across the banks;
+        under the scheduled policy bank 0 runs the planner search and
+        sibling banks replay its frozen decisions."""
+        r, c = shape
+        n_bits = r * c * 32
+        w = self._isa.width
+        chunks = {name: self._to_chunks(
+            kops.unpack_bits(p).reshape(n_bits), w)
+            for name, p in planes.items()}           # each (C, w)
+        n_chunks = -(-n_bits // w)
+        # chunk-constant planes broadcast as one word per block (zero
+        # padding makes a ragged last chunk differ, disabling the
+        # collapse)
+        const = {name: n_chunks > 1 and bool((ch == ch[0]).all())
+                 for name, ch in chunks.items()}
+        blk_sz = self._block_size(n_chunks)
+        pieces: dict[str, list[torch.Tensor]] = {k: [] for k in prog.outputs}
+        chain = self.policy.is_resident and self.chain_blocks
+        sessions: dict[tuple[int, int], CC.ResidentSession] = {}
+        shared = None       # bank-0 adjudicated decisions, non-chained
+
+        def bank0_fixed():
+            """Frozen scheduler decisions for sibling-bank replay: taken
+            from a bank-0 session that already planned, else computed
+            once on bank 0's scalar isa (memoized in _SCHED_CACHE)."""
+            for (b, _t), s in sessions.items():
+                if b == 0 and s._fixed is not None:
+                    return s._fixed
+            return CC.shared_schedule_decisions(prog, self._array.isa(0),
+                                                pin_inputs=chain)
+
+        for j, lo in enumerate(range(0, n_chunks, blk_sz)):
+            t = min(blk_sz, n_chunks - lo)
+            bank = j % self.banks
+            ins = {name: (ch[0] if const[name]
+                          else ch[lo] if t == 1 else ch[lo:lo + t])
+                   for name, ch in chunks.items()}
+            isa = self._isa_for(t, bank=bank,
+                                recycle=not (chain and (bank, t) in
+                                             sessions))
+            before = self._log_snapshot(isa.sim)
+            if chain:
+                sess = sessions.get((bank, t))
+                if sess is None:
+                    fixed = None
+                    if (bank != 0
+                            and self.policy is ResidentPolicy.SCHEDULED):
+                        fixed = bank0_fixed()
+                    sess = sessions[(bank, t)] = CC.ResidentSession(
+                        prog, isa, policy=self.policy.value, fixed=fixed,
+                        verify=self.verify)
+                res = sess.run(ins)
+            else:
+                plan = None
+                if (bank != 0
+                        and self.policy is ResidentPolicy.SCHEDULED):
+                    if shared is None:
+                        shared = bank0_fixed()
+                    plan = CC.schedule_resident(prog, isa,
+                                                policy="scheduled",
+                                                verify=self.verify,
+                                                _fixed=shared)
+                res = CC.run_sim(prog, ins, isa, resident=self.policy,
+                                 plan=plan)
+            if t == 1:
+                res = {k: v[None] for k, v in res.items()}
+            else:       # (w,) pass-through of a broadcast input -> (t, w)
+                res = {k: (v.expand(t, w) if v.dim() == 1 else v)
+                       for k, v in res.items()}
+            self._account_sim_log(isa.sim, before, bank=bank)
+            for name in pieces:
+                pieces[name].append(res[name])
+        return {name: self._pack_result(ps, r, c)
+                for name, ps in pieces.items()}
 
     # ------------- DRAM backend plumbing -------------
     def _block_size(self, n_chunks: int) -> int:

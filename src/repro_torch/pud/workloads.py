@@ -13,10 +13,12 @@ The port of ``repro.pud.workloads``:
   (``compiler.dot_exprs``): one bit lane per output element, one program
   input pair per bit position.  :func:`dot_bitserial` runs it through an
   engine; on the ``kernel`` backend every compute instruction is one
-  kernel launch.
+  kernel launch.  :func:`dot_bitserial_tree` shards the bit positions
+  across a :class:`~repro_torch.core.bankarray.BankArray` and joins the
+  per-bank partial counts with the cross-bank ``tree_reduce_add`` ripple
+  tree; its golden twin is ``kernels.ops.popcount_gemm_bits``.
 
-Lanes are built and packed on the engine's device.  Not ported yet:
-``dot_bitserial_tree`` (the cross-bank reduction, ROADMAP A-5).
+Lanes are built and packed on the engine's (or the array's) device.
 """
 from __future__ import annotations
 
@@ -25,6 +27,10 @@ from functools import lru_cache
 import torch
 
 from ..core import compiler as CC
+from ..core.bankarray import BankArray
+from ..core.device import SubarrayGeometry
+from ..core.policy import ResidentPolicy, coerce_resident
+from ..core.simulator import resolve_device
 from ..kernels import ops as kops
 from .engine import PudEngine
 
@@ -120,3 +126,66 @@ def dot_bitserial(x_bits, w_bits,
     m = len(x_bits)
     return _counts_from_planes(outs, lanes).reshape(
         m, lanes // m).to(torch.int32)
+
+
+def dot_bitserial_tree(x_bits, w_bits, *, banks: int = 2, module=None,
+                       seed: int = 0, noisy: bool = False,
+                       row_bits: int | None = None,
+                       policy: "ResidentPolicy | None" = None,
+                       draws: str = "device",
+                       device: str | torch.device = "cuda"
+                       ) -> tuple[torch.Tensor, BankArray]:
+    """Cross-bank form: shard the K bit positions over ``banks``.
+
+    Each bank runs its own compiled AND+popcount program over its slice
+    of bit positions (round-robin ``BankArray.shard``) on the simulated
+    bank, the M*N output lanes on the row (and, past one row, on the
+    trial axis); the partial count planes join through
+    :meth:`BankArray.tree_reduce_add`.  Under the scheduled policy the
+    planner search runs once on bank 0 and sibling banks replay the
+    frozen decisions.  ``draws`` is the banks' noise source.
+
+    Returns ``(counts (M, N) int32 on device, array)`` — the array is
+    handed back for its per-bank logs / makespan.
+    """
+    policy = coerce_resident(policy, where="dot_bitserial_tree",
+                             default=ResidentPolicy.SCHEDULED)
+    dev = resolve_device(device)
+    a, b = dot_lane_planes(x_bits, w_bits, device=dev)
+    k, lanes = a.shape
+    w = (row_bits or SubarrayGeometry().row_bits) // 2
+    t = -(-lanes // w)
+    pad = t * w - lanes
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        b = torch.nn.functional.pad(b, (0, pad))
+    lane_shape = (t, w) if t > 1 else (w,)
+    a = a.reshape((k,) + lane_shape)
+    b = b.reshape((k,) + lane_shape)
+    arr = BankArray(module, banks=banks, seed=seed, row_bits=row_bits,
+                    error_model="analog" if noisy else "ideal",
+                    trials=t if t > 1 else None, track_unshared=False,
+                    draws=draws, device=dev)
+    partial: list[torch.Tensor] = []
+    for bk, idx in enumerate(arr.shard(k)):
+        if not idx:
+            partial.append(torch.zeros((0,) + lane_shape, dtype=torch.uint8,
+                                       device=dev))
+            continue
+        prog = dot_program(len(idx))
+        ins = {f"a{j}": a[i] for j, i in enumerate(idx)} \
+            | {f"b{j}": b[i] for j, i in enumerate(idx)}
+        plan = None
+        if policy is ResidentPolicy.SCHEDULED:
+            fixed = arr.schedule_decisions(prog, trials=arr.trials)
+            plan = CC.schedule_resident(prog, arr.isa(bk),
+                                        policy="scheduled",
+                                        _fixed=None if bk == 0 else fixed)
+        out = CC.run_sim(prog, ins, arr.isa(bk), resident=policy,
+                         plan=plan)
+        partial.append(torch.stack([out[f"c{i}"] for i in range(len(out))]))
+    planes, _bank = arr.tree_reduce_add(partial, policy=policy)
+    cnt = sum(planes[i].to(torch.int64).reshape(-1) << i
+              for i in range(planes.shape[0]))[:lanes]
+    m = len(x_bits)
+    return cnt.reshape(m, lanes // m).to(torch.int32), arr

@@ -178,9 +178,9 @@ def test_engine_config_and_defaults():
     eng = TEngine(EngineConfig(backend="torch", seed=4), **CPU)
     assert eng.backend == "torch" and eng.seed == 4
     assert TEngine("dram", **CPU).config.resolved_resident() == "scheduled"
-    with pytest.raises(NotImplementedError):
-        EngineConfig().resolved_verify()
+    assert EngineConfig().resolved_verify() is False
     assert EngineConfig(verify=False).resolved_verify() is False
+    assert EngineConfig(verify=True).resolved_verify() is True
     with pytest.raises(ValueError):
         TEngine("jnp", **CPU)
     with pytest.raises(ValueError):
@@ -231,10 +231,13 @@ def test_dram_ideal_agrees_with_torch():
 @pytest.mark.parametrize("call", ["run_program", "add", "fused",
                                   "schedule_timing"])
 def test_dram_unported_paths_raise(call):
+    """What still needs ``repro.analysis`` or ``fused.py``: a resident plan
+    under ``verify=True`` (run_program and add schedule one), the fused
+    multi-bank path and the rank-legal timing."""
     def go():
         if call == "fused":
             return TEngine("dram", banks=2, fused=True, **CPU)
-        eng = TEngine("dram", **CPU)
+        eng = TEngine("dram", verify=True, **CPU)
         if call == "run_program":
             prog = TCC.compile_expr(TCC.Xor(TCC.Var("a"), TCC.Var("b")))
             return eng.run_program(prog, {"a": _planes(1, 8),
@@ -357,7 +360,10 @@ def test_no_port_module_imports_jax_or_reference():
                  "repro_torch.pud.bloom", "repro_torch.pud.workloads",
                  "repro_torch.core.compiler", "repro_torch.core.policy",
                  "repro_torch.kernels.bitwise",
-                 "repro_torch.kernels.bitserial"):
+                 "repro_torch.kernels.bitserial",
+                 "repro_torch.kernels.popcount_gemm",
+                 "repro_torch.models", "repro_torch.models.quant",
+                 "repro_torch.convert"):
         assert need in mods, need
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
