@@ -19,7 +19,11 @@ binary linears at the projection widths of ``configs/qwen3_4b.py`` on the
 compiled AND + popcount programs executed on the simulated DRAM banks
 (``dot_bitserial_tree``, the ``dram`` engine's ``run_program`` / ``add``,
 the program-level Monte-Carlo), held against the kernel; ``maj3`` runs
-through its entry point.
+through its entry point.  The fourth serves the decoder LM: the uncut
+``configs/qwen3_4b.py`` (36 layers, d_model 2560, 32 / 8 heads of 80,
+vocab 151936; random bf16 weights from a seeded generator) behind
+``ServeEngine`` with four slots of 4096 tokens, every layer's attention on
+the hand-written ``flash_attention`` kernel.
 Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
@@ -45,7 +49,18 @@ Phases:
     on the kernel and noisy with its mismatch rate, the ``dram`` engine's
     ``run_program`` / ``add`` ideal equal to the ``kernel`` backend, the
     program Monte-Carlo (xor / maj3 / add4, host-staged and resident), and
-    ``draws="numpy"`` card == CPU; then ``maj3`` through ``ops.maj3``.
+    ``draws="numpy"`` card == CPU; then ``maj3`` through ``ops.maj3``;
+11. the serving path (``serve_path``): ``flash_attention`` against its
+    plain version at the prefill (B = 1, 2048 queries over a 4096-slot
+    cache) and decode (B = 4, one query each) shapes in bf16 q with a
+    float32 cache and all float32, plus windowed, softcapped and ragged
+    cases (phase 3 with the other kernels); then 9 requests (prompts of
+    256–2048 tokens, 32 new tokens each, 8 greedy + 1 at temperature 1)
+    through ``ServeEngine`` on qwen3-4b at full width — one kernel launch
+    per layer per prefill and per decode step — the engine's prefill
+    logits against ``forward``, greedy agreement with a teacher-forced
+    ``forward``; and the same weights cut to 2 layers in float32 (TF32
+    off), card (kernel) against CPU (plain) ``forward`` logits.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -83,7 +98,17 @@ INT8_OPS_PER_S = 1979e12
 #: times the SM count and the card's max SM clock (read from nvidia-smi)
 #: this is the ceiling of the CUDA-core design, printed beside the bound
 POPC_PER_CLK_SM = 16
-KERNEL_SOURCES = ("senseamp", "bitwise", "bitserial", "popcount_gemm")
+#: dense bf16 tensor-core rate (H100 SXM data sheet): the operation bound
+#: of the bf16 attention kernel
+BF16_OPS_PER_S = 989e12
+KERNEL_SOURCES = ("senseamp", "bitwise", "bitserial", "popcount_gemm",
+                  "flash_attention")
+#: the served model and engine (src/repro/configs/qwen3_4b.py, uncut)
+SERVE_ARCH, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = "qwen3-4b", 4, 4096, 32
+#: prompt lengths are drawn from this range (numpy default_rng(0))
+SERVE_PROMPTS = (256, 2048)
+#: cache position of an unwritten slot (POS_SENTINEL)
+SENTINEL = (2 ** 31 - 1) // 2
 #: the projection widths of src/repro/configs/qwen3_4b.py, on 2048 tokens
 D_MODEL, D_FF, TOKENS = 2560, 9728, 2048
 #: the reference's program-level MC success (BENCH_pr10.json, "Resident vs
@@ -401,8 +426,9 @@ class Counts:
     each path's wall time (host clock from the reset to the synchronize
     of the read)."""
 
-    def __init__(self, S, BW, BS, PG):
-        self.S, self.dicts = S, (BW.launches, BS.launches, PG.launches)
+    def __init__(self, S, BW, BS, PG, FA):
+        self.S = S
+        self.dicts = (BW.launches, BS.launches, PG.launches, FA.launches)
         self.by_path: dict[str, dict[str, int]] = {}
         self.wall_s: dict[str, float] = {}
         self._t0 = 0.0
@@ -761,6 +787,295 @@ def maj3_path(counts: Counts) -> None:
     assert torch.equal(got, (a & b) | (c3 & (a | b))), "maj3 != direct"
 
 
+# ---------------------------------------------------------------------------
+# The serving path: the attention kernel, then qwen3-4b behind the engine
+# ---------------------------------------------------------------------------
+def _attention_case(gen, b, sq, sk, h, kv, hd, qdt, kvdt, q_pos, kv_pos):
+    """Normal q (B, Sq, H, hd) in ``qdt`` and k / v (B, Sk, KV, hd) in
+    ``kvdt`` on the card, with the given int32 positions."""
+    q = torch.randn((b, sq, h, hd), generator=gen, device="cuda").to(qdt)
+    k = torch.randn((b, sk, kv, hd), generator=gen, device="cuda").to(kvdt)
+    v = torch.randn((b, sk, kv, hd), generator=gen, device="cuda").to(kvdt)
+    return q, k, v, q_pos.int().contiguous(), kv_pos.int().contiguous()
+
+
+def _attention_bound(q, k, q_pos, kv_pos) -> tuple[float, str, dict]:
+    """Least time (ms) for these inputs: operations 4·H·(visible pairs)·hd
+    at the dense rate of q's type (bf16 tensor cores, else float32), bytes
+    = q, out, lse and the positions once plus each K/V row that some query
+    sees, in the cache's type."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    keep = q_pos[:, :, None] >= kv_pos[:, None, :]          # (B, Sq, Sk)
+    pairs = int(keep.sum()) * h
+    rows = int(keep.any(1).sum())
+    nops = 4 * pairs * hd
+    nbytes = (2 * q.numel() * q.element_size() + 4 * b * h * sq
+              + 4 * (q_pos.numel() + kv_pos.numel())
+              + 2 * rows * kvh * hd * k.element_size())
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else OPS_PER_S
+    t_ops, t_bytes = nops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    count = {"visible_pairs": pairs, "visible_kv_rows": rows,
+             "operations": nops, "bytes": nbytes}
+    if t_ops >= t_bytes:
+        return t_ops, "operations", count
+    return t_bytes, "bytes", count
+
+
+def check_flash_attention(FA) -> dict:
+    """The attention kernel against its plain version on the card.
+
+    Shapes: the serving path's prefill (B = 1, 2048 queries at positions
+    0..2047 over a 4096-slot cache whose second half holds POS_SENTINEL)
+    and decode (B = 4, one query per slot at 4095 / 3071 / 2047 / 1023,
+    the slots' unwritten tails holding the sentinel), with qwen3-4b's
+    32 / 8 heads of 80; then windowed + softcapped, ragged, hd 16 / 128
+    and G = 3 cases.  Types: bf16 q with a float32 cache (the serving
+    types) and all float32.  Tolerances: float32 1e-5 on out and lse (only
+    the summation order differs); bf16 q 1e-2 on out — P is rounded to
+    bf16 at other tile boundaries (64 keys vs the plain version's 1024:
+    another running max) and out is rounded to bf16 once — and 1e-4 on
+    lse (float32 sums of the same exact bf16 products).  Timed (bf16 q,
+    float32 cache) at the prefill and decode shapes against the bound,
+    the plain version and ``scaled_dot_product_attention`` on bf16 K/V
+    repeated to the 32 heads (prefill: ``is_causal`` over the prompt's own
+    keys; decode: a boolean mask from the positions) — the same visible
+    pairs."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8080)
+    h, kvh, hd, sk = 32, 8, 80, SERVE_MAX_LEN
+    ar = torch.arange(sk, device="cuda")
+    pre_q = torch.arange(2048, device="cuda")[None]
+    pre_kv = torch.where(ar < 2048, ar, SENTINEL)[None]
+    slot_pos = torch.tensor([4095, 3071, 2047, 1023], device="cuda")
+    dec_kv = torch.where(ar[None] <= slot_pos[:, None], ar[None], SENTINEL)
+    shapes = {"prefill": (1, 2048, sk, h, kvh, hd, pre_q, pre_kv, 0, 0.0),
+              "decode": (4, 1, sk, h, kvh, hd, slot_pos[:, None], dec_kv,
+                         0, 0.0)}
+    small = []
+    for b, sq, skk, hh, kk, d, q0, w, cap in (
+            (2, 100, 300, 8, 2, 64, 200, 37, 30.0),
+            (2, 77, 1000, 6, 2, 16, 923, 0, 0.0),
+            (1, 130, 200, 4, 4, 128, 70, 0, 5.0),
+            (3, 1, 333, 6, 2, 80, 300, 64, 0.0)):
+        qp = (torch.arange(sq, device="cuda") + q0).repeat(b, 1)
+        kp = torch.arange(skk, device="cuda").repeat(b, 1)
+        kp[-1, skk - 17:] = SENTINEL
+        small.append((b, sq, skk, hh, kk, d, qp, kp, w, cap))
+    worst = {"bf16_out": 0.0, "bf16_lse": 0.0, "f32_out": 0.0,
+             "f32_lse": 0.0}
+    tol = {"bf16_out": 1e-2, "bf16_lse": 1e-4, "f32_out": 1e-5,
+           "f32_lse": 1e-5}
+    timing = {}
+    for name, case in [*shapes.items(), *enumerate(small)]:
+        b, sq, skk, hh, kk, d, qp, kp, w, cap = case
+        for qdt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            args = _attention_case(gen, b, sq, skk, hh, kk, d, qdt,
+                                   torch.float32, qp, kp)
+            got = FA.flash_attention_cuda(*args, window=w, softcap=cap)
+            want = FA.flash_attention_plain(*args, window=w, softcap=cap)
+            torch.cuda.synchronize()
+            for part, x, y in (("out", got[0], want[0]),
+                               ("lse", got[1], want[1])):
+                err = float((x.float() - y.float()).abs().max())
+                key = f"{tag}_{part}"
+                worst[key] = max(worst[key], err)
+                assert err <= tol[key], (name, key, err)
+            if tag != "bf16" or name not in shapes:
+                continue
+            bound, by, count = _attention_bound(args[0], args[1], qp, kp)
+            q, k, v = args[:3]
+            qs = q.transpose(1, 2)
+            ks, vs = (t.to(torch.bfloat16).repeat_interleave(hh // kk, 2)
+                      .transpose(1, 2) for t in (k, v))
+            if name == "prefill":
+                ks, vs = ks[:, :, :sq].contiguous(), vs[:, :, :sq].contiguous()
+                library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                    qs, ks, vs, is_causal=True)
+            else:
+                ks, vs = ks.contiguous(), vs.contiguous()
+                mask = kp[:, None, None, :] <= qp[:, None, :, None]
+                library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                    qs, ks, vs, attn_mask=mask)
+            lib_err = float((library().transpose(1, 2).float()
+                             - got[0].float()).abs().max())
+            timing[name] = {
+                "ms": round(_time_ms(lambda: FA.flash_attention_cuda(
+                    *args, window=w, softcap=cap)), 6),
+                "plain_ms": round(_time_ms(lambda: FA.flash_attention_plain(
+                    *args, window=w, softcap=cap), reps=5), 6),
+                "bound_ms": round(bound, 6), "bound_by": by,
+                "library_ms": round(_time_ms(library), 6),
+                "library_max_abs_diff": lib_err, **count,
+                "shape": {"B": b, "Sq": sq, "Sk": skk, "H": hh, "KV": kk,
+                          "hd": d, "q": "bfloat16", "kv": "float32"}}
+            del ks, vs
+    print("[flash_attention] kernel vs plain max |diff| " + json.dumps(worst)
+          + " tolerances " + json.dumps(tol), flush=True)
+    pre = timing["prefill"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:81",
+            "launches": None, "max_abs_err": max(worst.values()),
+            "errors": worst, **pre, "decode_shape": timing["decode"]}
+
+
+def _ptxas_summary(log: str) -> list[str]:
+    """'<kernel>: N registers, S bytes smem, spills' from ``-Xptxas=-v``."""
+    out, name, spill = [], "", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return out
+
+
+def serve_path(counts: Counts, card: str) -> tuple[dict, dict]:
+    """qwen3-4b at full width behind ``ServeEngine`` (4 slots x 4096, the
+    float32 cache): 9 requests, 32 new tokens each, one kernel launch per
+    layer per prefill and per decode step; then the engine's prefill
+    logits against ``forward`` and the greedy agreement with a
+    teacher-forced ``forward``.  -> (numbers, the served parameters)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine, _prefill_fn
+    cfg = get_config(SERVE_ARCH)
+    walls = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    walls["init_params_s"] = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    eng = ServeEngine(cfg, params, n_slots=SERVE_SLOTS,
+                      max_len=SERVE_MAX_LEN)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1, 9)
+    prompts = [rng.integers(2, cfg.vocab, int(n)).tolist() for n in lens]
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    for p in prompts[:8]:
+        eng.submit(p, max_new_tokens=SERVE_NEW)
+    eng.submit(prompts[8], max_new_tokens=SERVE_NEW, temperature=1.0)
+    done = eng.run()
+    c = counts.read("serve_path")
+    peak = torch.cuda.max_memory_allocated()
+    n_pre, n_dec = len(eng.prefill_s), eng._steps
+    assert c["flash_attention"] == cfg.n_layers * (n_pre + n_dec), \
+        (c, n_pre, n_dec)
+    assert sum(c.values()) == c["flash_attention"], c
+    assert len(done) == 9 and all(len(r.out_tokens) == SERVE_NEW
+                                  for r in done), [len(r.out_tokens)
+                                                   for r in done]
+    wall = counts.wall_s["serve_path"]
+    dec = sorted(eng.decode_s)
+    out = {"arch": SERVE_ARCH, "params": n_params,
+           "param_count_formula": cfg.param_count(),
+           "prompt_lens": [int(n) for n in lens], "prefills": n_pre,
+           "decode_steps": n_dec, "flash_attention_launches":
+           c["flash_attention"], "wall_s": wall,
+           "prefill_ms": [1e3 * x for x in eng.prefill_s],
+           "decode_ms_median": 1e3 * dec[len(dec) // 2],
+           "decode_ms_mean": 1e3 * sum(dec) / len(dec),
+           "tokens": 9 * SERVE_NEW, "tokens_per_s": 9 * SERVE_NEW / wall,
+           "decode_tokens_per_s": (sum(len(r.out_tokens) - 1 for r in done)
+                                   / sum(dec)),
+           "peak_bytes": peak, "card": card}
+    # the engine's prefill logits == forward's at the last prompt position:
+    # the same bf16 operations (K/V round-trip exactly through the float32
+    # cache; the kernel sees the same visible keys in the same tiles), but
+    # the float32 unembedding multiplies one row instead of the prompt's,
+    # so cuBLAS may sum in another order: 1e-3 of the largest logit
+    tok = torch.tensor([prompts[0]], device="cuda")
+    fresh = T.init_caches(cfg, 1, SERVE_MAX_LEN, dtype=torch.float32)
+    got, _ = _prefill_fn(params, cfg, tok, torch.ones_like(tok, dtype=bool),
+                         fresh)
+    want = T.forward(params, cfg, {"tokens": tok})[:, -1]
+    rel = float((got - want).abs().max() / want.abs().max())
+    del fresh
+    assert rel <= 1e-3, rel
+    out["prefill_vs_forward_rel"] = rel
+    # greedy agreement with a teacher-forced forward over prompt + output
+    agree = total = 0
+    for r in done:
+        if r.temperature > 0:
+            continue
+        seq = torch.tensor([r.prompt + r.out_tokens[:-1]], device="cuda")
+        logits = T.forward(params, cfg, {"tokens": seq})[0, len(r.prompt) - 1:]
+        agree += int((logits.argmax(-1).cpu()
+                      == torch.tensor(r.out_tokens)).sum())
+        total += len(r.out_tokens)
+        del logits
+    out["greedy_agreement"] = agree / total
+    walls["checks_s"] = time.perf_counter() - t0 - walls["init_params_s"] \
+        - wall
+    out["walls"] = walls
+    print(f"[serve] {SERVE_ARCH} full width ({n_params} parameters, bf16) on "
+          f"{card}: {n_pre} prefills + {n_dec} decode steps, "
+          f"{c['flash_attention']} flash_attention launches, wall {wall} s, "
+          f"{out['tokens_per_s']} tok/s", flush=True)
+    print(f"[serve] prefill ms per request {out['prefill_ms']} (prompt "
+          f"lengths {out['prompt_lens']}); decode ms per step median "
+          f"{out['decode_ms_median']} mean {out['decode_ms_mean']}; decode "
+          f"tok/s {out['decode_tokens_per_s']}; peak memory {peak} B",
+          flush=True)
+    print(f"[serve] engine prefill vs forward: {rel} of the largest logit; "
+          f"greedy agreement with a teacher-forced forward {agree}/{total}",
+          flush=True)
+    return out, params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serve_f32_parity(counts: Counts, params) -> dict:
+    """The served weights cut to 2 layers, in float32 with TF32 off, on a
+    256-token prompt: the card (the kernel) against the CPU (the plain
+    version).  Relative max |Δlogits| ≤ 1e-4: float32 throughout, sums in
+    other orders (cuBLAS vs the CPU's GEMMs, 32- / 1024-key softmax
+    tiles) through two layers and a 2560-long unembedding."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(SERVE_ARCH).replace(n_layers=2, param_dtype="float32",
+                                         compute_dtype="float32")
+
+    def cut(tree, dev):
+        if isinstance(tree, dict):
+            return {k: cut(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cut(v, dev) for v in tree[:cfg.n_layers]]
+        return tree.to(dev, torch.float32)
+
+    card, cpu = cut(params, "cuda"), cut(params, "cpu")
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        2, cfg.vocab, (1, 256)))
+    counts.reset()
+    got = T.forward(card, cfg, {"tokens": tok.cuda()})
+    c = counts.read("serve_f32_card")
+    assert c["flash_attention"] == cfg.n_layers and \
+        sum(c.values()) == cfg.n_layers, c
+    want = T.forward(cpu, cfg, {"tokens": tok})
+    rel = float((got.cpu() - want).abs().max() / want.abs().max())
+    print(f"[serve] 2-layer float32 forward, card (kernel) vs CPU (plain): "
+          f"{rel} of the largest logit", flush=True)
+    assert rel <= 1e-4, rel
+    return {"rel_max_abs_diff": rel}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on the "
@@ -773,6 +1088,7 @@ def main() -> int:
     from repro_torch.kernels import bitserial as BS
     from repro_torch.kernels import bitwise as BW
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import popcount_gemm as PG
     from repro_torch.kernels import senseamp as S
     from repro_torch.pud.engine import PudEngine
@@ -793,6 +1109,8 @@ def main() -> int:
 
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         list(pool.map(build.load, KERNEL_SOURCES))
+    for line in _ptxas_summary(build.BUILD_LOGS.get("flash_attention", "")):
+        print(f"[ptxas] {line}", flush=True)
     t0 = _phase("build", t0, times)
 
     row = check_senseamp(S)
@@ -808,10 +1126,16 @@ def main() -> int:
               flush=True)
     print("[popcount_gemm] down shape "
           + json.dumps(bit_rows[-1]["down_shape"]), flush=True)
+    fa_row = check_flash_attention(FA)
+    for tag, r in (("prefill", fa_row), ("decode", fa_row["decode_shape"])):
+        print(f"[flash_attention] {tag}: kernel {r['ms']} ms, plain "
+              f"{r['plain_ms']} ms, library {r['library_ms']} ms, bound "
+              f"{r['bound_ms']} ms ({r['bound_by']}) at {r['shape']}",
+              flush=True)
     t0 = _phase("kernel_vs_plain", t0, times)
 
     # ---- main path: the launch count covers exactly these calls ----
-    counts = Counts(S, BW, BS, PG)
+    counts = Counts(S, BW, BS, PG, FA)
     counts.reset()
     rates, peak = {}, {}
     for op in charz.OPS:
@@ -900,9 +1224,17 @@ def main() -> int:
     print("[program] " + json.dumps(prog_out), flush=True)
     maj3_path(counts)
     t0 = _phase("program_path", t0, times)
+
+    # ---- the decoder LM behind the serving engine ----
+    serve_out, params = serve_path(counts, card)
+    print("[serve] " + json.dumps(serve_out), flush=True)
+    print("[serve] " + json.dumps(serve_f32_parity(counts, params)),
+          flush=True)
+    del params
+    t0 = _phase("serve_path", t0, times)
     print("[times] " + json.dumps(times), flush=True)
 
-    rows = [row, *bit_rows]
+    rows = [row, *bit_rows, fa_row]
     for r in rows:
         r["launches"] = counts.total(r["name"])
         r["launches_by_path"] = {p: c[r["name"]]

@@ -14,7 +14,9 @@ int32 bit patterns (``repro_torch.pud.engine.as_planes`` does this).
 
 The binary linear layers do hold weights: :func:`binary_linear_from_numpy`
 turns the reference's ``{"w": (out, in)}`` parameters, as numpy arrays,
-into the port's :class:`~repro_torch.models.quant.BinaryLinear`.
+into the port's :class:`~repro_torch.models.quant.BinaryLinear`; and
+:func:`lm_params_from_numpy` turns the reference decoder's parameter tree
+into the port's, so both compute the same model.
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ import torch
 
 from .core.analog import AnalogParams
 from .core.simulator import BankSim, resolve_device
+from .models.config import ModelConfig
 from .models.quant import BinaryLinear
+from .models.transformer import check_supported
 
 #: constructor settings of the bank, then its mutable state
 SETTINGS = ("module", "row_bits", "trials", "error_model", "temp_c",
@@ -88,3 +92,42 @@ def binary_linear_from_numpy(p: dict,
     with torch.no_grad():
         layer.weight.copy_(torch.from_numpy(w))
     return layer
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy array (or array-like) as a tensor on ``device``; bfloat16
+    arrays (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses)
+    cross over bit for bit as int16."""
+    a = np.array(a, order="C")          # a copy: no view of the caller's
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(params: dict, cfg: ModelConfig,
+                         device: str | torch.device = "cuda") -> dict:
+    """The port's decoder parameters on ``device`` from the reference's
+    ``repro.models.transformer.init_params`` tree as numpy arrays
+    (``jax.tree.map(np.asarray, params)``).  The reference stacks the
+    blocks on a leading layer axis (it initialises them with ``vmap``);
+    the port keeps one dict per layer.  Dense weights are ``(in, out)`` in
+    both, so nothing is transposed."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    conv = _map(lambda a: _tensor(a, dev),
+                {k: v for k, v in params.items() if k != "blocks"})
+    stacked = _map(lambda a: np.asarray(a), params["blocks"])
+    n = len(stacked["norm1"]["scale"])
+    if n != cfg.n_layers:
+        raise ValueError(f"the tree holds {n} blocks, the config "
+                         f"{cfg.n_layers}")
+    conv["blocks"] = [_map(lambda a, i=i: _tensor(a[i], dev), stacked)
+                      for i in range(n)]
+    return conv

@@ -9,9 +9,12 @@ an installed package, in ``_build/`` beside this module — never in a
 directory shared with other checkouts.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3`` and
-``--fmad=false`` — the kernels reproduce the float32 operation order of the
+``-Xptxas=-v`` (each kernel's registers, shared memory and spills, kept in
+:data:`BUILD_LOGS`), then the source's own (:func:`flags`): ``--fmad=false``
+by default — those kernels reproduce the float32 operation order of the
 numpy reference, so nvcc must not contract a multiply and an add into an
-FMA.
+FMA — and ``--fmad=true`` for ``flash_attention``, whose float32 arithmetic
+is held to a tolerance, not bit for bit.
 """
 from __future__ import annotations
 
@@ -30,9 +33,18 @@ BUILD_DIR = (_ROOT / "build" / "kernels"
              if _HERE.parents[1].name == "src"
              and (_ROOT / "pyproject.toml").exists() else _HERE / "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+#: flags of one source beyond NVCC_FLAGS (default: no FMA contraction)
+SOURCE_FLAGS = {"flash_attention": ("--fmad=true",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: nvcc's output (ptxas resource usage) of each source built in this process
+BUILD_LOGS: dict[str, str] = {}
+
+
+def flags(name: str) -> tuple[str, ...]:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ("--fmad=false",))
 
 
 def _nvcc() -> str:
@@ -48,7 +60,7 @@ def _nvcc() -> str:
 def lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+                            + " ".join(flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -61,13 +73,14 @@ def load(name: str) -> ctypes.CDLL:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                [_nvcc(), *flags(name), "-o", str(tmp),
                  str(CSRC / f"{name}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}.cu "
                                    f"(exit {proc.returncode}):\n"
                                    f"{proc.stdout}")
+            BUILD_LOGS[name] = proc.stdout
             os.replace(tmp, out)
         lib = _LIBS[name] = ctypes.CDLL(str(out))
     return lib

@@ -11,7 +11,8 @@ the same kernel with identity slot indices.  ``repro_torch.pud.engine``'s
 ``repro_torch.models.quant`` the binary GEMM :func:`popcount_gemm`;
 :func:`popcount_gemm_bits` is the golden twin of the bank-executed dot
 product (``repro_torch.pud.workloads``); :func:`maj3` is an entry point of
-its own.
+its own.  ``repro_torch.models.layers.apply_attention`` calls
+:func:`flash_attention` once per layer.
 """
 from __future__ import annotations
 
@@ -19,15 +20,16 @@ import torch
 
 from . import bitserial as _bitserial
 from . import bitwise as _bitwise
+from . import flash_attention as _fa
 from . import popcount_gemm as _pcg
 from . import ref  # re-exported for tests
 from . import senseamp as _senseamp
 from .ref import pack_bits, unpack_bits
 
-__all__ = ["add_planes", "bitcount_planes", "bitwise_not", "maj3",
-           "nary_bitwise", "nary_bitwise_bits", "pack_bits", "popcount_gemm",
-           "popcount_gemm_bits", "ref", "senseamp_gather", "senseamp_resolve",
-           "senseamp_resolve_trials", "unpack_bits"]
+__all__ = ["add_planes", "bitcount_planes", "bitwise_not", "flash_attention",
+           "maj3", "nary_bitwise", "nary_bitwise_bits", "pack_bits",
+           "popcount_gemm", "popcount_gemm_bits", "ref", "senseamp_gather",
+           "senseamp_resolve", "senseamp_resolve_trials", "unpack_bits"]
 
 
 def _route(x: torch.Tensor, cuda, plain):
@@ -151,3 +153,17 @@ def popcount_gemm_bits(x_bits, w_bits, *, kind: str = "and",
     if kind == "xnor" and pk:
         out = out - pk
     return out
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                    window: int = 0, softcap: float = 0.0):
+    """Causal / windowed online-softmax attention forward over grouped K/V:
+    q (B, Sq, H, hd), k / v (B, Sk, KV, hd), int32 positions (B, Sq) /
+    (B, Sk) -> (out (B, Sq, H, hd) in q's type, lse (B, H, Sq) float32).
+    See :mod:`repro_torch.kernels.flash_attention`."""
+    return _route(q, _fa.flash_attention_cuda, _fa.flash_attention_plain)(
+        q, k, v, q_pos, kv_pos, window=window, softcap=softcap)

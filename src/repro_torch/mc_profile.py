@@ -49,13 +49,15 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_cell(kind, op, n) -> dict:
-    _call(kind, op, n)                              # warm-up
+def measure(fn, reps: int = REPS) -> dict:
+    """Wall (median of ``reps`` untraced calls after a warm-up) and device
+    time per kernel (one traced call) of ``fn()`` on the card."""
+    fn()                                            # warm-up
     walls = []
-    for _ in range(REPS):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _call(kind, op, n)
+        fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -66,7 +68,7 @@ def profile_cell(kind, op, n) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
-        _call(kind, op, n)
+        fn()
         torch.cuda.synchronize()
     traced_wall = time.perf_counter() - t0
     kernels = {}
@@ -85,6 +87,10 @@ def profile_cell(kind, op, n) -> dict:
             "device_ms": device_ms,
             "busy_share": device_ms / wall_ms,
             "top_kernels": top}
+
+
+def profile_cell(kind, op, n) -> dict:
+    return measure(lambda: _call(kind, op, n))
 
 
 def main(argv=None) -> int:

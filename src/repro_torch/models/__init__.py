@@ -1,6 +1,10 @@
 """Model layers of the port (see ``repro.models`` for the reference).
 
-quant — binary (1-bit) linear layers on the popcount GEMM kernel
+config      — ``ModelConfig`` / ``ShapeConfig`` / ``SHAPES`` (copies)
+layers      — RMSNorm, RoPE, GQA attention on the flash-attention kernel,
+              SwiGLU, embedding
+transformer — the decoder: init_params, forward, init_caches, decode_step
+quant       — binary (1-bit) linear layers on the popcount GEMM kernel
 """
 from .quant import (BinaryLinear, apply_binary_linear, binarize_pack,
                     binary_matmul, init_binary_linear, ste_binary_matmul)

@@ -1,0 +1,197 @@
+"""Decoder layers of the port, the serving subset of ``repro.models.layers``:
+RMSNorm, RoPE, GQA attention with a KV cache, SwiGLU, embedding.
+
+Plain-function style as in the reference: ``init_*`` build parameter dicts
+of tensors (dense weights ``(in, out)``, applied as ``x @ w``), ``apply_*``
+run them.  The reference's cast points are kept, because they decide
+bf16 parity: weights cast to the compute type at use, RMSNorm's variance
+in float32 with ``inv`` cast to the activation type, RoPE's cos / sin in
+float32 cast to ``x``'s type, logits in float32.
+
+Every attention — prefill, prefill into a cache, decode — is one call of
+:func:`repro_torch.kernels.ops.flash_attention` on the unrepeated K/V: the
+hand-written kernel on a CUDA tensor, its plain twin on a CPU one.  The
+reference chooses between its ``fused_attention`` region and an unfused
+jnp path by ``cfg.fused_attention``; both compute the same function, and
+``cfg.fused_attention`` has no effect here.  The mesh constraints
+(``constrain_*``) are no-ops without a mesh and are left out.  Not ported
+yet (ROADMAP A-8): cross-attention, ``extra_mask`` and the region's
+backward.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .config import ModelConfig
+
+#: position sentinel of unwritten cache slots — never passes the causal
+#: check (q_pos >= kv_pos), so stale slots are invisible
+POS_SENTINEL = (2 ** 31 - 1) // 2
+
+
+def _dt(cfg: ModelConfig, kind: str) -> torch.dtype:
+    s = cfg.param_dtype if kind == "param" else cfg.compute_dtype
+    return getattr(torch, s)
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """N(0, 1/in) weights of shape (in, out), drawn in float32."""
+    w = torch.randn((in_dim, out_dim), generator=gen, device=gen.device)
+    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+def init_rmsnorm(d: int, dtype: torch.dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm with the variance reduced in float32."""
+    var = x.float().square().mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * p["scale"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int32.  cos / sin in float32,
+    cast to x's type; the rotation at x's type."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    ang = positions[..., None].float() * freqs
+    cos = torch.cos(ang).to(x.dtype)[:, :, None, :]
+    sin = torch.sin(ang).to(x.dtype)[:, :, None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    dt = _dt(cfg, "param")
+    d, hd = cfg.d_model, cfg.hd
+    p = {
+        "wq": dense_init(gen, d, cfg.n_heads * hd, dt),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dt),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dt),
+        "wo": dense_init(gen, cfg.n_heads * hd, d, dt),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, dt, gen.device)
+        p["k_norm"] = init_rmsnorm(hd, dt, gen.device)
+    return p
+
+
+def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, *,
+                    kv_cache: dict | None = None,
+                    extra_mask: torch.Tensor | None = None,
+                    ) -> tuple[torch.Tensor, dict | None]:
+    """x: (B, S, D); positions (B, S) int32.  kv_cache: {"k", "v": (B,
+    S_max, KV, hd), "pos": (B, S_max) int32}, **updated in place** and
+    returned: decode (S == 1) writes the ring buffer at ``position %
+    S_max``, a prefill into the cache (S > 1) writes its block at 0."""
+    if extra_mask is not None:
+        raise NotImplementedError("extra_mask is not ported yet (ROADMAP A-8)")
+    b, s, _d = x.shape
+    hd = cfg.hd
+    cdt = _dt(cfg, "compute")
+    xq = (x @ p["wq"].to(cdt)).reshape(b, s, cfg.n_heads, hd)
+    xk = (x @ p["wk"].to(cdt)).reshape(b, s, cfg.n_kv_heads, hd)
+    xv = (x @ p["wv"].to(cdt)).reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        xq = rmsnorm(p["q_norm"], xq, cfg.norm_eps)
+        xk = rmsnorm(p["k_norm"], xk, cfg.norm_eps)
+    xq = apply_rope(xq, positions, cfg.rope_theta)
+    xk = apply_rope(xk, positions, cfg.rope_theta)
+    positions = positions.to(torch.int32).contiguous()
+
+    if kv_cache is None:
+        k, v, kv_pos = xk, xv, positions
+    else:
+        k, v, kv_pos = kv_cache["k"], kv_cache["v"], kv_cache["pos"]
+        if s == 1:
+            idx = positions[:, 0].long() % k.shape[1]
+            bar = torch.arange(b, device=x.device)
+            k[bar, idx] = xk[:, 0].to(k.dtype)
+            v[bar, idx] = xv[:, 0].to(v.dtype)
+            kv_pos[bar, idx] = positions[:, 0]
+        else:
+            k[:, :s] = xk
+            v[:, :s] = xv
+            kv_pos[:, :s] = positions
+    out, _lse = ops.flash_attention(xq, k, v, positions, kv_pos,
+                                    window=cfg.sliding_window,
+                                    softcap=cfg.attn_logit_softcap)
+    out = out.reshape(b, s, cfg.n_heads * hd)
+    return out @ p["wo"].to(cdt), kv_cache
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, s_max: int,
+                  dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    return {
+        "k": torch.zeros((batch, s_max, cfg.n_kv_heads, cfg.hd), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, s_max, cfg.n_kv_heads, cfg.hd), dtype=dtype,
+                         device=device),
+        "pos": torch.full((batch, s_max), POS_SENTINEL, dtype=torch.int32,
+                          device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU FFN
+# ---------------------------------------------------------------------------
+def init_mlp(gen: torch.Generator, cfg: ModelConfig,
+             d_ff: int | None = None) -> dict:
+    dt = _dt(cfg, "param")
+    d_ff = d_ff or cfg.d_ff
+    return {
+        "w_gate": dense_init(gen, cfg.d_model, d_ff, dt),
+        "w_up": dense_init(gen, cfg.d_model, d_ff, dt),
+        "w_down": dense_init(gen, d_ff, cfg.d_model, dt),
+    }
+
+
+def apply_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    cdt = _dt(cfg, "compute")
+    g = F.silu(x @ p["w_gate"].to(cdt))
+    u = x @ p["w_up"].to(cdt)
+    return (g * u) @ p["w_down"].to(cdt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    t = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                    device=gen.device) * 0.02
+    return {"table": t.to(_dt(cfg, "param"))}
+
+
+def embed(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of the table at the compute type (gathered, then cast)."""
+    return p["table"][tokens].to(_dt(cfg, "compute"))
+
+
+def unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """-> logits (..., V) in float32: the table cast to x's type, then a
+    float32 product (exact products of bf16 operands, float32 sums — the
+    reference's preferred_element_type=float32)."""
+    return x.float() @ p["table"].to(x.dtype).float().T
