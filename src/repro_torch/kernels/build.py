@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes plain C entry points and compiles on its own,
 on first use (:func:`load`; nothing is compiled when a module is imported),
-into ``lib<name>-<hash>.so``, keyed by the source's content hash so an edited
-source is never served a stale library.  The library lands in
+into ``lib<name>-<hash>.so``, keyed by the content hash of the source, of
+every ``csrc/*.cuh`` header and of its flags, so an edited source or header
+is never served a stale library.  The library lands in
 ``build/kernels/`` at the root of the checkout the package runs from, or, for
 an installed package, in ``_build/`` beside this module — never in a
 directory shared with other checkouts.
@@ -58,10 +59,11 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(flags(name)).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def load(name: str) -> ctypes.CDLL:

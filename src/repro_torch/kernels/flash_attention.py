@@ -21,14 +21,23 @@ window`` when ``window > 0``); a query that sees no key gives 0, so cache
 slots holding ``POS_SENTINEL`` are invisible.
 
 :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu``: one
-block per (batch, kv head, 64 flat query rows of that kv head's group),
-K/V tiles staged through shared memory and read once per group, tiles no
-row can see skipped; ``mma.sync`` bf16 tensor-core products for bf16 q, a
-CUDA-core float32 variant for float32 q.  K/V may be float32 or bfloat16
-(the serving cache is float32).  :func:`flash_attention_plain` is the same
-function in plain PyTorch, mirroring ``_fused_flash_fwd_impl`` (KV chunks
-of ``KV_CHUNK``, the same padding sentinel): what a CPU tensor gets and
-what the kernel is held against on the card.
+block per (batch, kv head, flat query rows of that kv head's group), K/V
+tiles brought into a shared-memory ring by ``cp.async`` ahead of the
+products, rounded to q's type and read once per group, tiles no row can
+see skipped.  bf16 q: at hd 64 / 80, 192-row blocks of three warpgroups
+on ``wgmma`` (swizzled shared-memory operands, P from registers); otherwise
+``mma.sync``.  float32 q: a CUDA-core variant.  K/V may be float32 or
+bfloat16 (the serving cache is float32).  A call whose rows fit one
+64-row block (decode) and whose ``B * KV`` blocks would leave the card
+idle splits the keys (:func:`split_plan`): each split writes float32
+partials ``(m, l, acc)`` and a second kernel merges them, launched from
+the same host call (alone: :func:`combine_cuda`).
+:func:`flash_attention_plain` is the same function in plain PyTorch,
+mirroring ``_fused_flash_fwd_impl`` (KV chunks of ``KV_CHUNK``, the same
+padding sentinel): what a CPU tensor gets and what the kernel is held
+against on the card, within :func:`bf16_out_tolerance` at bf16;
+:func:`split_partials_plain` and :func:`combine_plain` are the split
+path's twins.
 """
 from __future__ import annotations
 
@@ -44,9 +53,18 @@ PAD_POS = (2 ** 31 - 1) // 2
 #: masked score and initial running max of the reference
 NEG = -1e30
 
+#: keys per tile of the bf16 kernel: the split path's unit
+TILE_KEYS = 64
+#: rows (Sq * H / KV) of one block of the split path
+SPLIT_ROWS = 64
+#: blocks per SM the split aims at (at most two are resident at once: the
+#: rest cover the slots' unequal lengths)
+SPLIT_BLOCKS_PER_SM = 4
+
 #: kernel launches since the counts were last reset (plain calls not
-#: counted)
-launches = {"flash_attention": 0}
+#: counted); ``flash_attention`` counts calls, ``flash_attention_combine``
+#: the merges of the split ones
+launches = {"flash_attention": 0, "flash_attention_combine": 0}
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -74,10 +92,9 @@ def _check(q, k, v, q_pos, kv_pos) -> None:
                          f"those alike; got {q.dtype}, {k.dtype}, {v.dtype}")
 
 
-def flash_attention_plain(q, k, v, q_pos, kv_pos, *, window: int = 0,
-                          softcap: float = 0.0):
-    """Plain twin: -> (out (B, Sq, H, hd) in q's type, lse (B, H, Sq))."""
-    _check(q, k, v, q_pos, kv_pos)
+def _partials_plain(q, k, v, q_pos, kv_pos, window, softcap):
+    """The online softmax over every key: -> float32 m, l (B, KV, G, Sq)
+    and acc (B, KV, G, Sq, hd), unnormalized."""
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     grp = h // kvh
@@ -119,41 +136,187 @@ def flash_attention_plain(q, k, v, q_pos, kv_pos, *, window: int = 0,
         acc = acc * corr[..., None] + torch.einsum(
             "bkgqc,bckd->bkgqd", p.to(v_i.dtype).float(), v_i.float())
         m = m_new
+    return m, l, acc
+
+
+def flash_attention_plain(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                          softcap: float = 0.0):
+    """Plain twin: -> (out (B, Sq, H, hd) in q's type, lse (B, H, Sq))."""
+    _check(q, k, v, q_pos, kv_pos)
+    b, sq, h, hd = q.shape
+    m, l, acc = _partials_plain(q, k, v, q_pos, kv_pos, window, softcap)
     out = acc / torch.clamp(l[..., None], min=1e-20)
     lse = m + torch.log(torch.clamp(l, min=1e-20))
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
     return out, lse.reshape(b, h, sq)
 
 
+def bf16_out_tolerance(q, k, v, q_pos, kv_pos, want, *, window: int = 0,
+                       softcap: float = 0.0) -> torch.Tensor:
+    """How far a bf16 ``out`` may lie from the plain version's ``want =
+    (out, lse)`` on these inputs, per element: ``1e-3 + 2^-6 |out| + 2^-5
+    sqrt(sum_j p_j^2 v_j^2) / l``, the sum over the row's visible keys
+    (p_j = e^(s_j - m), l = sum_j p_j; K and V at bf16).
+
+    The second term is out's own rounding (one bf16 ulp is at most 2^-7
+    |out|).  The third is P's: rounded to bf16 at another running max
+    (another tile or split), each p_j moves by at most one ulp, 2^-7 p_j,
+    so out moves by at most 2^-7 p_j |v_j| / l for one key — a quarter of
+    the term — and by a sum whose standard deviation is at most 2^-7 / √6
+    of the root (a tenth of the term) when many keys move.  The root is
+    one more plain pass: scores doubled (2 q, softcap doubled) give
+    weights p_j^2, summing v^2, with lse2 = 2 m + log sum p_j^2."""
+    out, lse = want
+    kb, vb = k.to(q.dtype).float(), v.to(q.dtype).float()
+    out2, lse2 = flash_attention_plain(2 * q.float(), kb, vb * vb, q_pos,
+                                       kv_pos, window=window,
+                                       softcap=2 * softcap)
+    ratio = torch.exp(torch.clamp(lse2 - 2 * lse, max=0.0))   # sum p^2 / l^2
+    root = torch.sqrt(out2 * ratio.transpose(1, 2)[..., None])
+    return 1e-3 + 2.0 ** -6 * out.float().abs() + 2.0 ** -5 * root
+
+
+def decode_splits(b: int, kvh: int, sk: int, sm_count: int
+                  ) -> tuple[int, int]:
+    """How the split path cuts the keys of a call with ``b * kvh`` blocks:
+    -> (n_split, split_tiles).  Split i covers tiles ``[i * split_tiles,
+    (i + 1) * split_tiles)`` of ``TILE_KEYS`` keys (the last one ends at
+    Sk), so every tile lies in exactly one split and none is empty; the
+    count aims at ``SPLIT_BLOCKS_PER_SM`` blocks per SM.  ``(1, tiles)``
+    when ``b * kvh`` blocks already fill the card."""
+    tiles = -(-sk // TILE_KEYS)
+    want = -(-SPLIT_BLOCKS_PER_SM * sm_count // max(1, b * kvh))
+    n = max(1, min(tiles, want))
+    per = -(-tiles // n)
+    return -(-tiles // per), per
+
+
+def split_plan(b: int, sq: int, h: int, kvh: int, sk: int,
+               sm_count: int) -> tuple[int, int]:
+    """How :func:`flash_attention_cuda` cuts the keys of a call: ->
+    (n_split, split_tiles).  A call whose rows fit one ``SPLIT_ROWS``
+    block (``Sq * H / KV``: decode, short chunks) takes
+    :func:`decode_splits`; any other walks every tile in one range,
+    ``(1, tiles)``."""
+    if sq * (h // kvh) <= SPLIT_ROWS:
+        return decode_splits(b, kvh, sk, sm_count)
+    return 1, -(-sk // TILE_KEYS)
+
+
+def split_ranges(sk: int, n_split: int, split_tiles: int
+                 ) -> list[tuple[int, int]]:
+    """The key ranges ``[lo, hi)`` of the splits; raises unless each is
+    non-empty and together they cover the Sk keys."""
+    step = split_tiles * TILE_KEYS
+    if n_split < 1 or split_tiles < 1 or not (
+            (n_split - 1) * step < sk <= n_split * step):
+        raise ValueError(f"{n_split} splits of {split_tiles} tiles do not "
+                         f"cut {sk} keys into non-empty ranges")
+    return [(i * step, min(sk, (i + 1) * step)) for i in range(n_split)]
+
+
+def split_partials_plain(q, k, v, q_pos, kv_pos, *, n_split: int,
+                         split_tiles: int, window: int = 0,
+                         softcap: float = 0.0):
+    """Plain twin of the split kernel: -> float32 partials ``part_acc``
+    (n_split, B, Sq, H, hd), unnormalized, and ``part_ml`` (n_split, B,
+    H, Sq, 2) of (m, l), each split over its own keys.  A split that sees
+    nothing gives m = -1e30, l = 0, acc = 0."""
+    _check(q, k, v, q_pos, kv_pos)
+    b, sq, h, hd = q.shape
+    accs, mls = [], []
+    for lo, hi in split_ranges(k.shape[1], n_split, split_tiles):
+        m, l, acc = _partials_plain(q, k[:, lo:hi], v[:, lo:hi], q_pos,
+                                    kv_pos[:, lo:hi], window, softcap)
+        accs.append(acc.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd))
+        mls.append(torch.stack([m, l], -1).reshape(b, h, sq, 2))
+    return torch.stack(accs), torch.stack(mls)
+
+
+def combine_plain(part_acc, part_ml, dtype):
+    """Plain twin of the merge: partials -> (out (B, Sq, H, hd) in
+    ``dtype``, lse (B, H, Sq)); M = max m_i, L = sum l_i e^(m_i - M),
+    acc = sum acc_i e^(m_i - M)."""
+    m, l = part_ml[..., 0], part_ml[..., 1]                # (n, B, H, Sq)
+    big = m.amax(0)
+    wt = torch.exp(m - big)
+    el = (l * wt).sum(0)
+    acc = (part_acc * wt.transpose(2, 3)[..., None]).sum(0)
+    out = acc / torch.clamp(el.transpose(1, 2)[..., None], min=1e-20)
+    return out.to(dtype), big + torch.log(torch.clamp(el, min=1e-20))
+
+
+def flash_attention_split_plain(q, k, v, q_pos, kv_pos, *, n_split: int,
+                                split_tiles: int, window: int = 0,
+                                softcap: float = 0.0):
+    """The split path in plain PyTorch: partials, then the merge."""
+    parts = split_partials_plain(q, k, v, q_pos, kv_pos, n_split=n_split,
+                                 split_tiles=split_tiles, window=window,
+                                 softcap=softcap)
+    return combine_plain(*parts, q.dtype)
+
+
 _VP, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LIB = None
 
 
 def _lib():
-    from . import build
-    lib = build.load("flash_attention")
-    if lib.flash_attention_fwd.argtypes is None:
-        lib.flash_attention_fwd.argtypes = [_VP] * 7 + [_INT] * 7 + [
-            _F, _F, _INT, _INT, _VP]
+    global _LIB
+    if _LIB is None:
+        from . import build
+        lib = build.load("flash_attention")
+        lib.flash_attention_fwd.argtypes = [_VP] * 9 + [_INT] * 9 + [
+            _F, _F, _INT, _INT, _INT, _VP]
         lib.flash_attention_fwd.restype = ctypes.c_int
-    return lib
+        lib.flash_attention_combine.argtypes = [_VP] * 4 + [_INT] * 7 + [_VP]
+        lib.flash_attention_combine.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
 
 
-def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, window: int = 0,
-                         softcap: float = 0.0):
-    """Launch the kernel on the current stream; -> (out, lse) as
-    :func:`flash_attention_plain`.  Anything the kernel does not take
-    raises: hd must be a multiple of 8 up to 128."""
-    _check(q, k, v, q_pos, kv_pos)
-    ts = {"q": q, "k": k, "v": v, "q_pos": q_pos, "kv_pos": kv_pos}
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _stream(idx: int) -> int:
+    """The raw handle of the device's current stream (PyTorch's own cheap
+    accessor where the build has it)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(idx) if raw is not None else \
+        torch.cuda.current_stream(idx).cuda_stream
+
+
+def _want_cuda(**ts) -> None:
+    first = next(iter(ts.values()))
     for name, t in ts.items():
         if t.device.type != "cuda" or not t.is_contiguous():
             raise ValueError(f"{name}: want a contiguous CUDA tensor, got "
                              f"one on {t.device} "
                              f"(contiguous={t.is_contiguous()})")
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if t.device != first.device:
+            raise ValueError(f"{name} on {t.device}, {next(iter(ts))} on "
+                             f"{first.device}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel reads 16-byte aligned rows")
+
+
+#: per call signature (shapes, types, devices): what :func:`_plan` found
+_PLANS: dict[tuple, tuple] = {}
+
+
+def _plan(q, k, v, q_pos, kv_pos) -> tuple:
+    """Check a call signature once: -> (device, device index, lse shape,
+    n_split, split_tiles, partial floats of acc, of all partials)."""
+    _check(q, k, v, q_pos, kv_pos)
+    _want_cuda(q=q, k=k, v=v, q_pos=q_pos, kv_pos=kv_pos)
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if hd % 8 or hd > 128:
@@ -161,19 +324,83 @@ def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, window: int = 0,
                          f"128")
     if b > 65535 or kvh > 65535:
         raise ValueError(f"B = {b}, KV = {kvh} exceed the kernel's grid")
+    n, per = split_plan(b, sq, h, kvh, sk, sm_count(q.device))
+    acc = n * b * sq * h * hd if n > 1 else 0
+    return (q.device, q.get_device(), (b, h, sq), n, per, acc,
+            acc + 2 * n * b * h * sq if n > 1 else 0)
+
+
+def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                         softcap: float = 0.0):
+    """Launch the kernel on the current stream (and, on the split path, the
+    merge, from the same host call); -> (out, lse) as
+    :func:`flash_attention_plain`.  Anything the kernel does not take
+    raises: hd must be a multiple of 8 up to 128.  Shapes, types and the
+    split are checked once per call signature; contiguity and alignment on
+    every call."""
+    key = (q.shape, k.shape, v.shape, q_pos.shape, kv_pos.shape, q.dtype,
+           k.dtype, v.dtype, q_pos.dtype, kv_pos.dtype, q.get_device(),
+           k.get_device(), v.get_device(), q_pos.get_device(),
+           kv_pos.get_device())
+    plan = _PLANS.get(key)
+    if plan is None:
+        if len(_PLANS) >= 4096:
+            _PLANS.clear()
+        plan = _PLANS[key] = _plan(q, k, v, q_pos, kv_pos)
+    dev, idx, lse_shape, n, per, n_acc, n_part = plan
+    for t in (q, k, v, q_pos, kv_pos):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            _want_cuda(q=q, k=k, v=v, q_pos=q_pos, kv_pos=kv_pos)
+    b, sq, h, hd = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lse = torch.empty(lse_shape, dtype=torch.float32, device=dev)
     if b == 0 or sq == 0:        # nothing to launch
         return out, lse
-    with torch.cuda.device(q.device):
-        err = _lib().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq, sk, h,
-            kvh, hd, int(window), 1.0 / math.sqrt(hd), float(softcap),
-            int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    part = acc_ptr = ml_ptr = None
+    if n > 1:       # one buffer: acc (n, B, Sq, H, hd), ml (n, B, H, Sq, 2)
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+        acc_ptr = part.data_ptr()
+        ml_ptr = acc_ptr + 4 * n_acc
+    err = _lib().flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+        kv_pos.data_ptr(), out.data_ptr(), lse.data_ptr(), acc_ptr, ml_ptr,
+        b, sq, k.shape[1], h, k.shape[2], hd, int(window), n, per,
+        1.0 / math.sqrt(hd), float(softcap), int(q.dtype == torch.bfloat16),
+        int(k.dtype == torch.bfloat16), idx, _stream(idx))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{err}")
     launches["flash_attention"] += 1
+    if n > 1:
+        launches["flash_attention_combine"] += 1
+    return out, lse
+
+
+def combine_cuda(part_acc, part_ml, dtype):
+    """Launch the merge alone on partials laid out as
+    :func:`split_partials_plain` gives them; -> (out, lse) as
+    :func:`combine_plain`."""
+    _want_cuda(part_acc=part_acc, part_ml=part_ml)
+    if (part_acc.dim() != 5 or part_acc.dtype != torch.float32
+            or part_ml.dtype != torch.float32
+            or part_ml.shape != (*part_acc.shape[:2], part_acc.shape[3],
+                                 part_acc.shape[2], 2)):
+        raise ValueError(f"want float32 part_acc (n, B, Sq, H, hd) and "
+                         f"part_ml (n, B, H, Sq, 2); got "
+                         f"{tuple(part_acc.shape)}, {tuple(part_ml.shape)}")
+    if dtype not in _FLOATS or part_acc.shape[-1] > 128:
+        raise ValueError(f"out dtype {dtype}, hd {part_acc.shape[-1]}: want "
+                         f"float32 / bfloat16 and hd <= 128")
+    n, b, sq, h, hd = part_acc.shape
+    out = torch.empty((b, sq, h, hd), dtype=dtype, device=part_acc.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=out.device)
+    idx = out.get_device()
+    err = _lib().flash_attention_combine(
+        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), n, b, sq, h, hd, int(dtype == torch.bfloat16), idx,
+        _stream(idx))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_combine launch failed: CUDA "
+                           f"error {err}")
+    launches["flash_attention_combine"] += 1
     return out, lse

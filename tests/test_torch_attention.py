@@ -9,9 +9,12 @@ against the reference's repeated), one query against a cache holding
 ``POS_SENTINEL`` slots, ragged Sq / Sk.  It also equals the Pallas kernel
 ``repro.kernels.flash_attention.flash_attention`` (interpret mode) and the
 unfused ``_flash_attend`` path.  Inputs are made with numpy and handed to
-both packages.  Tests marked ``cuda`` hold the kernel to the plain version
-on the card; the reference (which needs jax) comes in through a fixture,
-so they collect where jax is not installed.
+both packages.  The split path's plain twin (per-split partials, then the
+merge) equals the unsplit plain version within 1e-6, and
+``decode_splits`` / ``split_plan`` are checked as pure functions.  Tests marked ``cuda``
+hold the kernels to the plain versions on the card; the reference (which
+needs jax) comes in through a fixture, so they collect where jax is not
+installed.
 """
 from types import SimpleNamespace
 
@@ -19,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 
@@ -183,6 +187,147 @@ def test_kernel_wrapper_wants_cuda_tensors():
 
 
 # ---------------------------------------------------------------------------
+# The split (flash-decoding) path: plain twin and split counts
+# ---------------------------------------------------------------------------
+#: (B, Sq, Sk, H, KV, hd, q0, sentinel tail, window, softcap, n_split,
+#: split_tiles); q0 < 0 puts every query at Sk - 1 (decode at the end)
+SPLIT_CASES = {
+    # the second slot all sentinel: its splits all see nothing
+    "all_sentinel_slot": (2, 1, 700, 8, 2, 16, -1, 700, 0, 0.0, 11, 1),
+    # queries at 300: splits 5 .. 10 lie in the causal future, empty
+    "empty_future_splits": (2, 1, 700, 8, 2, 16, 300, 0, 0, 0.0, 6, 2),
+    # the window leaves only the last splits anything to see
+    "window": (3, 1, 1500, 6, 2, 16, -1, 200, 100, 0.0, 8, 3),
+    "softcap": (2, 3, 900, 4, 1, 32, 700, 50, 0, 5.0, 5, 3),
+    "window_softcap_g3": (2, 2, 400, 6, 2, 24, 390, 0, 37, 2.5, 7, 1),
+    "one_split": (2, 1, 100, 4, 2, 16, -1, 30, 0, 0.0, 1, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_plain_matches_plain(name):
+    """Per-split (m, l, acc) over contiguous key ranges, merged, equal the
+    unsplit plain version within 1e-6 in float32 (only the order of the
+    sums differs); a split that sees nothing contributes nothing, and a
+    slot that sees no key gives 0 and the plain version's lse."""
+    b, sq, sk, h, kv, hd, q0, tail, window, softcap, n, per = \
+        SPLIT_CASES[name]
+    q, k, v, qp, kp = (torch.from_numpy(x) for x in _case(
+        11, b, sq, sk, h, kv, hd, q0=sk - 1 if q0 < 0 else q0, tail=tail))
+    kw = dict(window=window, softcap=softcap)
+    acc, ml = FA.split_partials_plain(q, k, v, qp, kp, n_split=n,
+                                      split_tiles=per, **kw)
+    assert acc.shape == (n, b, sq, h, hd) and ml.shape == (n, b, h, sq, 2)
+    got = FA.combine_plain(acc, ml, q.dtype)
+    want = FA.flash_attention_plain(q, k, v, qp, kp, **kw)
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), rtol=0,
+                               atol=1e-6)
+    if tail == sk:                          # the all-sentinel slot
+        assert not got[0][-1].any()
+        assert (ml[:, -1, ..., 0] == FA.NEG).all()
+        assert not ml[:, -1, ..., 1].any()
+
+
+def _excess(got, want, tol) -> float:
+    """max |got - want| / tol: at most 1 passes."""
+    return float(((got.float() - want.float()).abs() / tol).max())
+
+
+def test_split_plain_bf16_is_the_split_of_the_plain_bf16():
+    """bf16 q: P is rounded at each split's own running max, so the split
+    path's out moves within ``bf16_out_tolerance`` of the unsplit one, as
+    the kernel is held on the card; lse within 1e-5."""
+    q, k, v, qp, kp = (torch.from_numpy(x) for x in _case(
+        12, 4, 1, 1000, 8, 2, 16, q0=999, tail=300))
+    q = q.bfloat16()
+    n, per = FA.decode_splits(4, 2, 1000, 132)
+    got = FA.flash_attention_split_plain(q, k, v, qp, kp, n_split=n,
+                                         split_tiles=per)
+    want = FA.flash_attention_plain(q, k, v, qp, kp)
+    assert got[0].dtype == torch.bfloat16
+    assert _excess(got[0], want[0], FA.bf16_out_tolerance(
+        q, k, v, qp, kp, want)) <= 1.0
+    assert float((got[1] - want[1]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("slot", [0, 1])
+def test_bf16_tolerance_catches_a_wrong_v_tile(slot):
+    """The bf16 out tolerance passes the split path (P rounded at other
+    running maxima) and fails it when one split reads the wrong V tile of
+    one slot — a fault lse cannot see."""
+    q, k, v, qp, kp = (torch.from_numpy(x) for x in _case(
+        13, 2, 1, 2048, 8, 2, 80, q0=2047))
+    q, qp = q.bfloat16(), torch.tensor([[2047], [1023]], dtype=torch.int32)
+    kp = torch.where(kp <= qp, kp, SENTINEL).int()
+    want = FA.flash_attention_plain(q, k, v, qp, kp)
+    tol = FA.bf16_out_tolerance(q, k, v, qp, kp, want)
+    n, per = FA.decode_splits(2, 2, 2048, 132)
+    good = FA.flash_attention_split_plain(q, k, v, qp, kp, n_split=n,
+                                          split_tiles=per)
+    assert _excess(good[0], want[0], tol) <= 0.5
+    wrong = v.clone()
+    wrong[slot, 640:704] = v[slot, 704:768]
+    bad = FA.flash_attention_split_plain(q, k, wrong, qp, kp, n_split=n,
+                                         split_tiles=per)
+    assert _excess(bad[0], want[0], tol) > 2.0
+
+
+@pytest.mark.parametrize("b,kvh,sk,sms", [
+    (4, 8, 4096, 132), (4, 8, 700, 132), (1, 1, 1000, 132), (3, 2, 65, 132),
+    (1, 8, 64, 132), (64, 8, 4096, 132), (200, 8, 4096, 132),
+    (2, 4, 100_000, 114), (4, 8, 4096, 1)])
+def test_decode_splits_cover_every_tile_once(b, kvh, sk, sms):
+    n, per = FA.decode_splits(b, kvh, sk, sms)
+    tiles = -(-sk // FA.TILE_KEYS)
+    ranges = FA.split_ranges(sk, n, per)
+    assert len(ranges) == n >= 1 and per >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == sk
+    assert all(r0[1] == r1[0] for r0, r1 in zip(ranges, ranges[1:]))
+    # no split under one tile; every boundary on a tile boundary
+    assert all(hi > lo for lo, hi in ranges)
+    assert all(lo % FA.TILE_KEYS == 0 for lo, _ in ranges)
+    assert n <= tiles
+
+
+def test_decode_splits_fill_the_card_at_the_serving_decode_shape():
+    """qwen3-4b decode on 4 slots of 4096: 32 (slot, kv head) pairs need
+    splits to put at least 2 blocks on each of 132 SMs; a call with enough
+    blocks of its own is not split."""
+    n, per = FA.decode_splits(4, 8, 4096, 132)
+    assert 4 * 8 * n >= 2 * 132
+    assert per * FA.TILE_KEYS * (n - 1) < 4096 <= per * FA.TILE_KEYS * n
+    assert FA.decode_splits(600, 8, 4096, 132) == (1, 64)
+
+
+def test_split_plan_splits_only_calls_that_fit_one_block():
+    """The wrapper's split: decode and chunks of up to 64 rows (Sq * H /
+    KV) take ``decode_splits``; a longer call walks every tile at once."""
+    assert FA.split_plan(4, 1, 32, 8, 4096, 132) == \
+        FA.decode_splits(4, 8, 4096, 132)
+    assert FA.split_plan(2, 16, 32, 8, 4096, 132) == \
+        FA.decode_splits(2, 8, 4096, 132)
+    assert FA.split_plan(1, 17, 32, 8, 4096, 132) == (1, 64)
+    assert FA.split_plan(1, 2048, 32, 8, 4097, 132) == (1, 65)
+
+
+def test_build_hash_follows_the_headers(tmp_path, monkeypatch):
+    """An edited ``csrc`` header changes every library's name, so a stale
+    library is never loaded; so does an edited source."""
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text("// one\n")
+    before = build.lib_path("k")
+    assert build.lib_path("k") == before
+    (tmp_path / "a.cuh").write_text("// two\n")
+    edited = build.lib_path("k")
+    assert edited != before
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n// more\n')
+    assert build.lib_path("k") not in (before, edited)
+
+
+# ---------------------------------------------------------------------------
 # On the card: the kernel == its plain twin
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -201,6 +346,19 @@ CARD_CASES = (
     (1, 9, 1000, 3, 1, 16, 991, 0, 0, 0.0),        # G = 3, hd 16
     (2, 20, 45, 4, 2, 8, 25, 10, 5, 0.0),          # hd 8 (padded to 16)
     (1, 3, 20, 2, 1, 16, -10, 0, 0, 0.0),          # rows before every key
+    # the split path: B = 4 over 4096 slots, the last slot all sentinel
+    (4, 1, 4096, 32, 8, 80, 4095, 4096, 0, 0.0),
+    (4, 1, 4096, 32, 8, 80, 4095, 0, 300, 0.0),    # windowed decode
+    (3, 1, 2000, 6, 2, 80, 1999, 700, 0, 0.0),     # G = 3
+    (2, 5, 3000, 32, 8, 80, 2995, 100, 0, 30.0),   # a 5-token chunk, softcap
+    # prefill: many ring stages, ragged Sk, 128-row blocks
+    (1, 1000, 1333, 32, 8, 80, 333, 0, 0, 0.0),
+    (2, 517, 2100, 16, 4, 64, 1500, 90, 0, 0.0),
+    (1, 640, 640, 8, 8, 128, 0, 0, 200, 0.0),       # hd 128, window
+    # more tiles than one visibility pass flags (wgmma blocks: 96; hd 16
+    # blocks: 32)
+    (1, 100, 7000, 8, 2, 64, 6900, 30, 0, 0.0),
+    (1, 40, 2500, 4, 2, 16, 2460, 0, 0, 0.0),
 )
 
 
@@ -224,21 +382,32 @@ def _card_inputs(card, case, qdt, kvdt, seed):
     (torch.float32, torch.float32), (torch.float32, torch.bfloat16)])
 def test_flash_attention_kernel_matches_plain_on_card(qdt, kvdt, card):
     """float32: 1e-5 on out and lse (only the summation order differs).
-    bf16 q: out within 1e-2 (P and out rounded to bf16 at other tile
-    boundaries), lse within 1e-4 (float32 sums of the same products)."""
-    tol = (1e-5, 1e-5) if qdt == torch.float32 else (1e-2, 1e-4)
+    bf16 q: out within ``bf16_out_tolerance`` per element (P rounded to
+    bf16 at other running maxima, out rounded once), lse within 1e-4
+    (float32 sums of the same products)."""
     for i, case in enumerate(CARD_CASES):
         q, k, v, qp, kp = _card_inputs(card, case, qdt, kvdt, i)
         kw = dict(window=case[8], softcap=case[9])
-        before = FA.launches["flash_attention"]
+        b, sq, sk, h, kv = case[:5]
+        split = FA.split_plan(b, sq, h, kv, sk, FA.sm_count(card))[0] > 1
+        before = dict(FA.launches)
         out, lse = ops.flash_attention(q, k, v, qp, kp, **kw)
         torch.cuda.synchronize()
-        assert FA.launches["flash_attention"] == before + 1
+        assert FA.launches["flash_attention"] == \
+            before["flash_attention"] + 1
+        assert FA.launches["flash_attention_combine"] == \
+            before["flash_attention_combine"] + split
         want = FA.flash_attention_plain(q, k, v, qp, kp, **kw)
         assert out.dtype == qdt and out.shape == q.shape
         d_out = float((out.float() - want[0].float()).abs().max())
         d_lse = float((lse - want[1]).abs().max())
-        assert d_out <= tol[0] and d_lse <= tol[1], (case, d_out, d_lse)
+        if qdt == torch.float32:
+            assert d_out <= 1e-5 and d_lse <= 1e-5, (case, d_out, d_lse)
+        else:
+            excess = _excess(out, want[0], FA.bf16_out_tolerance(
+                q, k, v, qp, kp, want, **kw))
+            assert excess <= 1.0 and d_lse <= 1e-4, (case, d_out, excess,
+                                                     d_lse)
 
 
 @pytest.mark.cuda
@@ -247,3 +416,26 @@ def test_flash_attention_kernel_rejects_what_it_cannot_take(card):
                                    torch.bfloat16, torch.float32, 0)
     with pytest.raises(ValueError, match="multiples of 8"):
         FA.flash_attention_cuda(q, k, v, qp, kp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_combine_kernel_matches_plain_on_card(dtype, card):
+    """The merge alone, on the plain twin's partials (an all-sentinel slot
+    among them): out within the rounding of its type, lse within 1e-5."""
+    q, k, v, qp, kp = _card_inputs(card, (4, 1, 2000, 32, 8, 80, 1999, 2000,
+                                          100, 0.0), dtype, torch.float32, 5)
+    acc, ml = FA.split_partials_plain(q, k, v, qp, kp, n_split=8,
+                                      split_tiles=4, window=100)
+    before = FA.launches["flash_attention_combine"]
+    got = FA.combine_cuda(acc, ml, dtype)
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention_combine"] == before + 1
+    want = FA.combine_plain(acc, ml, dtype)
+    if dtype == torch.bfloat16:      # the same partials: out's rounding
+        tol = 1e-3 + 2.0 ** -6 * want[0].float().abs()
+        assert _excess(got[0], want[0], tol) <= 1.0
+    else:
+        assert float((got[0].float() - want[0].float()).abs().max()) <= 1e-5
+    assert float((got[1] - want[1]).abs().max()) <= 1e-5
+    assert not got[0][-1].any()
