@@ -30,7 +30,11 @@ Phases:
 2. build the kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
    source, all started together);
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   at the main path's shapes, with its time beside its bound;
+   at the main path's shapes, with its time beside its bound and, where
+   one PyTorch call computes the same function, that call's time —
+   queued, in a CUDA graph and with the L2 flushed for ``bitwise_not``
+   (``torch.bitwise_not``), ``popcount_gemm`` (bf16 ``torch.mm`` and int8
+   ``torch._int_mm`` on the ±1 operands) and the attention kernel (SDPA);
 4. the Monte-Carlo path through ``charz.mc_boolean_success`` /
    ``mc_not_success``; the rates are held to the paper and to the
    closed-form model;
@@ -92,15 +96,16 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 #: operation bound of the plane kernels is optimistic — they are bound by
 #: bytes many times over either way)
 OPS_PER_S = 67e12
-#: dense int8 tensor-core rate (H100 SXM data sheet): the fastest exact
-#: path the card has for the popcount GEMM, whose xnor product is a ±1
-#: int8 product with int32 sums (2 operations per multiply-add) — its bound
+#: dense int8 tensor-core rate (H100 SXM data sheet), 2 operations per
+#: multiply-add
 INT8_OPS_PER_S = 1979e12
-#: 32-bit population counts per clock per SM on compute capability 9.0
-#: (CUDA C++ Programming Guide, arithmetic-instruction throughput table);
-#: times the SM count and the card's max SM clock (read from nvidia-smi)
-#: this is the ceiling of the CUDA-core design, printed beside the bound
-POPC_PER_CLK_SM = 16
+#: 1-bit tensor-core rate, the rate of the popcount GEMM's own type (one
+#: bit-pair AND + popcount = 2 operations): the sheet lists none, so it is
+#: the int8 rate times 8, the bits per instruction of the 1-bit forms
+#: (mma.sync m16n8k256 .b1, wgmma m64nNk256 .b1) over the int8 forms (k32),
+#: which the card issues at one rate (a register-only mma.sync loop on an
+#: H100: .b1 at 7.998x the bit-products of .s8 a second)
+ONE_BIT_OPS_PER_S = 8 * INT8_OPS_PER_S
 #: dense bf16 tensor-core rate (H100 SXM data sheet): the operation bound
 #: of the bf16 attention kernel
 BF16_OPS_PER_S = 989e12
@@ -280,10 +285,13 @@ def check_bitkernels(BW, BS) -> list[dict]:
         for op in BW.OPS:
             held("nary_bitwise", BW.nary_bitwise_cuda(p, op),
                  BW.nary_bitwise_plain(p, op), (op, shape))
-    for shape in ((7, 1000), (1, 3)):
+    for shape in ((7, 1000), (1, 3), (1, 4097), (3, 1365), (1000, 1003)):
         p = _words(gen, *shape)
         held("bitwise_not", BW.bitwise_not_cuda(p), BW.bitwise_not_plain(p),
              shape)
+    p = _words(gen, 1, 4101)[:, 1:]                         # unaligned
+    held("bitwise_not", BW.bitwise_not_cuda(p), BW.bitwise_not_plain(p),
+         "unaligned")
     for shape in ((7, 1000), (1, 3), (3, 70)):
         abc = [_words(gen, *shape) for _ in range(3)]
         held("maj3", BW.maj3_cuda(*abc), BW.maj3_plain(*abc), shape)
@@ -300,14 +308,36 @@ def check_bitkernels(BW, BS) -> list[dict]:
              BS.bitcount_planes_plain(p), (n, shape))
 
     def timed(name, cuda_fn, plain_fn, args, nbytes, nops, library=None):
+        """Queued times; where a library call exists, also in a CUDA graph
+        and with the L2 flushed, kernel and library in turns (kernel,
+        library, library, kernel, three times over; the median of each
+        six), and their ratios."""
         held(name, cuda_fn(*args), plain_fn(*args), "main-path shape")
         bound, by = _bound(nbytes, nops)
-        return {"ms": round(_time_ms(lambda: cuda_fn(*args)), 6),
-                "plain_ms": round(_time_ms(lambda: plain_fn(*args), reps=5),
-                                  6),
-                "bound_ms": round(bound, 6), "bound_by": by,
-                "library_ms": (None if library is None else
-                               round(_time_ms(lambda: library(*args)), 6))}
+        row = {"ms": round(_time_ms(lambda: cuda_fn(*args)), 6),
+               "plain_ms": round(_time_ms(lambda: plain_fn(*args), reps=5),
+                                 6),
+               "bound_ms": round(bound, 6), "bound_by": by,
+               "library_ms": None}
+        if library is None:
+            return row
+        row["library_ms"] = round(_time_ms(lambda: library(*args)), 6)
+        kernel, lib = (lambda: cuda_fn(*args)), (lambda: library(*args))
+        for how, timer in (("graph_", _time_graph_ms),
+                           ("cold_", _time_cold_ms)):
+            t = [timer(f) for f in (kernel, lib, lib, kernel) * 3]
+            row[f"{how}ms"] = round(float(np.median(t[0::4] + t[3::4])), 6)
+            row[f"library_{how}ms"] = round(
+                float(np.median(t[1::4] + t[2::4])), 6)
+        for how in ("", "graph_", "cold_"):
+            row[f"{how}vs_library"] = round(
+                row[f"{how}ms"] / row[f"library_{how}ms"], 4)
+        row["graph_share_of_bound"] = round(bound / row["graph_ms"], 4)
+        print(f"[{name}] kernel / library queued {row['vs_library']}, graph "
+              f"{row['graph_vs_library']}, cold {row['cold_vs_library']}; "
+              f"graph share of bound {row['graph_share_of_bound']}",
+              flush=True)
+        return row
 
     mask = _words(gen, 4, 16384, 512)             # the attention-mask stack
     words = 16384 * 512
@@ -362,66 +392,115 @@ def check_bitkernels(BW, BS) -> list[dict]:
              "max_abs_err": float(worst[r["name"]]), **r} for r in rows]
 
 
-def _pm1_bf16(words: torch.Tensor, k: int) -> torch.Tensor:
-    """Packed words (rows, KB) -> the ±1 values of their first k bits as
-    bfloat16 (rows, k): the operands of the library yardstick."""
+def _pm1(words: torch.Tensor, k: int, dtype: torch.dtype) -> torch.Tensor:
+    """Packed words (rows, KB) -> the ±1 values of their first k bits in
+    ``dtype`` (rows, k): the operands of the library yardsticks."""
     from repro_torch.kernels.ops import unpack_bits
-    return (2 * unpack_bits(words)[:, :k].to(torch.bfloat16) - 1)
+    return 2 * unpack_bits(words)[:, :k].to(dtype) - 1
 
 
-def check_popcount_gemm(PG, clock_mhz: float) -> dict:
+def check_popcount_gemm(PG) -> dict:
     """The binary GEMM vs its plain twin, bit for bit: both kinds at
     ragged shapes (130 x 50 x 65 is the reference's padded-and-corrected
-    case) and at the two serve shapes of the quant path, xnor timed there.
-    Bound: the same product as ±1 int8 on the tensor cores, 2·M·N·32·KB
-    operations at the dense int8 rate (the bytes bound is smaller);
-    ``popc_bound_ms`` is the CUDA-core design's own ceiling, one POPC per
-    (m, n, word) at 16 per clock per SM.  Library yardstick: ``torch.mm``
-    on the same operands unpacked to ±1 bfloat16 — a time only; its output
-    is rounded bfloat16, not the same value."""
+    case; the rest cross the kernel's 64 x 128 tiles and 16-word K
+    stages, stay below one tile, or take the word copies: KB not a
+    multiple of 4, an operand 4 bytes off alignment), at the ±32·KB
+    extremes (all-ones and all-zero words) and at the two serve shapes of
+    the quant path, xnor timed there on three measures (queued from
+    Python, in a CUDA graph, with the L2 flushed).  Bound: the larger of
+    the bytes (packed operands read once, the int32 output written once)
+    and 2·M·N·32·KB operations at the 1-bit tensor-core rate; the same
+    operations at the dense int8 rate stand beside it as
+    ``int8_ops_bound_ms``, the bound of the ±1 int8 product the
+    yardsticks compute.  Library yardsticks,
+    timed the same three ways: ``torch.mm`` on the operands unpacked to ±1
+    bfloat16 (a time only: its output is rounded bfloat16) and
+    ``torch._int_mm`` on them as ±1 int8 (exact: held equal to the
+    kernel).  ``*vs_library*`` is kernel / yardstick on one measure."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1313)
     worst = 0
     shapes = ((8, 8, 2), (130, 50, 65), (1, 1, 1), (300, 257, 80),
-              (64, 64, 32), (77, 3, 304))
+              (64, 64, 32), (77, 3, 304), (127, 255, 3), (129, 257, 5),
+              (256, 193, 9), (257, 129, 33), (5, 100, 7), (100, 5, 6),
+              (131, 129, 20))
     serve = {"up": (TOKENS, D_FF, D_MODEL // 32),
              "down": (TOKENS, D_MODEL, D_FF // 32)}
+
+    def held(x, w, kind, what):
+        nonlocal worst
+        d = _diff(PG.popcount_gemm_cuda(x, w, kind),
+                  PG.popcount_gemm_plain(x, w, kind))
+        worst = max(worst, d)
+        assert d == 0, f"popcount_gemm kernel != plain {what}"
+
     for m, n, kb in (*shapes, *serve.values()):
         x, w = _words(gen, m, kb), _words(gen, n, kb)
         for kind in PG.KINDS:
-            d = _diff(PG.popcount_gemm_cuda(x, w, kind),
-                      PG.popcount_gemm_plain(x, w, kind))
-            worst = max(worst, d)
-            assert d == 0, f"popcount_gemm kernel != plain {(m, n, kb)}"
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    popc_per_s = POPC_PER_CLK_SM * sms * clock_mhz * 1e6
+            held(x, w, kind, (m, n, kb, kind))
+    x = _words(gen, 70 * 8 + 1)[1:].view(70, 8)            # unaligned
+    for kind in PG.KINDS:
+        held(x, _words(gen, 90, 8), kind, ("unaligned", kind))
+    ones = torch.full((130, 9), -1, dtype=torch.int32, device="cuda")
+    zeros = torch.zeros_like(ones)
+    for x, w in ((ones, ones), (ones, zeros), (zeros, zeros)):
+        for kind in PG.KINDS:
+            held(x, w, kind, ("extremes", kind))
     timing = {}
     for name, (m, n, kb) in serve.items():
         x, w = _words(gen, m, kb), _words(gen, n, kb)
         nbytes = 4 * (m * kb + n * kb + m * n)
-        t_ops = 2 * m * n * 32 * kb / INT8_OPS_PER_S * 1e3
+        t_ops = 2 * m * n * 32 * kb / ONE_BIT_OPS_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        xb, wb = _pm1_bf16(x, 32 * kb), _pm1_bf16(w, 32 * kb)
-        timing[name] = {
-            "ms": round(_time_ms(
-                lambda: PG.popcount_gemm_cuda(x, w, "xnor")), 6),
-            "plain_ms": round(_time_ms(
-                lambda: PG.popcount_gemm_plain(x, w, "xnor"), reps=5), 6),
-            "bound_ms": round(max(t_ops, t_bytes), 6),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "popc_bound_ms": round(m * n * kb / popc_per_s * 1e3, 6),
-            "library_ms": round(_time_ms(lambda: torch.mm(xb, wb.T)), 6),
-            "shape": {"M": m, "N": n, "KB": kb, "kind": "xnor"}}
-        del xb, wb
+        xb, wb = _pm1(x, 32 * kb, torch.bfloat16), _pm1(w, 32 * kb,
+                                                        torch.bfloat16)
+        x8, w8 = _pm1(x, 32 * kb, torch.int8), _pm1(w, 32 * kb, torch.int8)
+        kernel = lambda: PG.popcount_gemm_cuda(x, w, "xnor")  # noqa: E731
+        bf16 = lambda: torch.mm(xb, wb.T)                      # noqa: E731
+        int8 = lambda: torch._int_mm(x8, w8.T)                 # noqa: E731
+        row = {"ms": round(_time_ms(kernel), 6),
+               "graph_ms": round(_time_graph_ms(kernel), 6),
+               "cold_ms": round(_time_cold_ms(kernel), 6),
+               "plain_ms": round(_time_ms(
+                   lambda: PG.popcount_gemm_plain(x, w, "xnor"), reps=5), 6),
+               "bound_ms": round(max(t_ops, t_bytes), 6),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": round(_time_ms(bf16), 6),
+               "library_graph_ms": round(_time_graph_ms(bf16), 6),
+               "library_cold_ms": round(_time_cold_ms(bf16), 6),
+               "library_int8_ms": round(_time_ms(int8), 6),
+               "library_int8_graph_ms": round(_time_graph_ms(int8), 6),
+               "library_int8_cold_ms": round(_time_cold_ms(int8), 6),
+               "library_int8_max_abs_diff": _diff(int8(), kernel()),
+               "int8_ops_bound_ms": round(
+                   2 * m * n * 32 * kb / INT8_OPS_PER_S * 1e3, 6),
+               "device_kernels_per_call": 2,
+               "shape": {"M": m, "N": n, "KB": kb, "kind": "xnor"}}
+        for how in ("", "graph_", "cold_"):
+            row[f"{how}vs_library"] = round(
+                row[f"{how}ms"] / row[f"library_{how}ms"], 4)
+            row[f"{how}vs_library_int8"] = round(
+                row[f"{how}ms"] / row[f"library_int8_{how}ms"], 4)
+        row["graph_share_of_bound"] = round(
+            row["bound_ms"] / row["graph_ms"], 4)
+        print(f"[popcount_gemm] {name} {row['shape']}: kernel / bf16 mm "
+              f"queued {row['vs_library']}, graph {row['graph_vs_library']}, "
+              f"cold {row['cold_vs_library']}; kernel / int8 _int_mm queued "
+              f"{row['vs_library_int8']}, graph "
+              f"{row['graph_vs_library_int8']}, cold "
+              f"{row['cold_vs_library_int8']}; graph share of bound "
+              f"{row['graph_share_of_bound']}", flush=True)
+        assert row["library_int8_max_abs_diff"] == 0, "_int_mm != kernel"
+        timing[name] = row
+        del xb, wb, x8, w8
     up = timing.pop("up")
     return {"name": "popcount_gemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/popcount_gemm.cu",
             "replaces": "src/repro/kernels/popcount_gemm.py:73",
             "launches": None, "max_abs_err": float(worst), **up,
             "down_shape": timing["down"],
-            "bound_rate": {"int8_ops_per_s": INT8_OPS_PER_S,
-                           "popc_per_clk_sm": POPC_PER_CLK_SM, "sms": sms,
-                           "max_sm_clock_mhz": clock_mhz}}
+            "bound_rate": {"one_bit_ops_per_s": ONE_BIT_OPS_PER_S,
+                           "bytes_per_s": HBM_BYTES_PER_S}}
 
 
 class Counts:
@@ -1249,17 +1328,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(f"[card] {card}", flush=True)
-    clock = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0])
-    print(f"[card] max SM clock {clock} MHz", flush=True)
     t0 = _phase("nvidia_smi", t0, times)
 
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         list(pool.map(build.load, KERNEL_SOURCES))
-    for line in _ptxas_summary(build.BUILD_LOGS.get("flash_attention", "")):
-        print(f"[ptxas] {line}", flush=True)
+    for name in ("popcount_gemm", "flash_attention"):
+        for line in _ptxas_summary(build.BUILD_LOGS.get(name, "")):
+            print(f"[ptxas] {line}", flush=True)
     t0 = _phase("build", t0, times)
 
     row = check_senseamp(S)
@@ -1267,7 +1342,7 @@ def main() -> int:
           f"plain {row['plain_ms']} ms, bound {row['bound_ms']} ms "
           f"({row['bound_by']}) at {row['shape']}", flush=True)
     bit_rows = check_bitkernels(BW, BS)
-    bit_rows.append(check_popcount_gemm(PG, clock))
+    bit_rows.append(check_popcount_gemm(PG))
     for r in bit_rows:
         print(f"[{r['name']}] kernel == plain bit for bit; kernel {r['ms']} "
               f"ms, plain {r['plain_ms']} ms, library {r['library_ms']} ms, "

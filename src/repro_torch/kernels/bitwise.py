@@ -13,7 +13,10 @@ launch ``csrc/bitwise.cu``: the planes are flat streams of ``R·C`` 32-bit
 words, one thread per 16-byte vector (one word on a ragged length or an
 unaligned pointer), the running value in registers across the plane loop.
 They are bound by bytes on an H100: ``4·(N + 1)`` bytes per output word
-against ``N`` logic operations.
+against ``N`` logic operations.  The complement gives each block one
+contiguous run of 1,024 vectors, keeps four vectors per thread in flight
+and reads with the streaming hint (``__ldcs``); a length that is not a
+multiple of 4 ends in a scalar tail.
 
 :func:`nary_bitwise_plain` / :func:`bitwise_not_plain` /
 :func:`maj3_plain` are the same functions in plain PyTorch (the oracles of

@@ -3,18 +3,27 @@
 //
 // Replaces the Pallas TPU kernels repro/kernels/bitwise.py::nary_bitwise
 // (AND / OR / NAND / NOR / XOR across the N planes of an (N, R, C) stack),
-// ::bitwise_not and ::maj3 (the bitwise 3-input majority of three planes).  The TPU version cuts the planes into (8, 512) tiles
-// and pads R and C up to them; here the planes are flat streams of L = R*C
-// 32-bit words and one thread owns one 16-byte vector (4 words) of every
-// plane, or one word when L is not a multiple of 4, so neighbouring threads
-// read neighbouring addresses and the ragged tail needs no padding.  The
-// running value stays in registers across the plane loop; the op is a
-// template argument, so the loop body is one logic instruction per word.
+// ::bitwise_not and ::maj3 (the bitwise 3-input majority of three planes).
+// The TPU version cuts the planes into (8, 512) tiles and pads R and C up
+// to them; here the planes are flat streams of L = R*C 32-bit words and a
+// thread owns 16-byte vectors (4 words) of every plane, or single words
+// when L is not a multiple of 4 or a pointer is not 16-byte aligned, so
+// neighbouring threads read neighbouring addresses and the ragged tail
+// needs no padding.  The running value stays in registers across the plane
+// loop; the op is a template argument, so the loop body is one logic
+// instruction per word.
 //
 // Bound on an H100: bytes.  Per output word it reads N words and writes
 // one, with N - 1 logic operations (plus one NOT for NAND/NOR; four for
 // MAJ3's (a & b) | (c & (a | b)) over three words): far below the card's
-// integer rate per byte moved.
+// integer rate per byte moved.  The complement, one operation per 8 bytes
+// moved, is a copy with a NOT: each block owns one contiguous run of
+// NOT_UNROLL * 256 vectors, each thread keeps NOT_UNROLL vectors in flight
+// (all loads issued before any store), and the loads carry the streaming
+// hint (ld.global.cs: read once, evict first).  Measured against this on
+// one card: a grid of only the blocks the SMs hold at once, walking the
+// input in strides, was slower with the L2 cold; streaming stores, unroll
+// 2 or 8 and 128 or 512 threads a block were no faster.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,12 +65,35 @@ __global__ void nary_kernel(const V* __restrict__ planes, int n, int64_t len,
   }
 }
 
+constexpr int NOT_UNROLL = 4;
+
+// Block b complements vectors (uint4) or words [b C, (b + 1) C), C =
+// NOT_UNROLL * blockDim: each thread loads its NOT_UNROLL before storing
+// any.  On the vector path the first threads of block 0 also complement
+// the tail words in[4 len .. 4 len + tail).
 template <typename V>
 __global__ void not_kernel(const V* __restrict__ in, int64_t len,
-                           V* __restrict__ out) {
-  for (int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; k < len;
-       k += (int64_t)gridDim.x * blockDim.x)
-    out[k] = ~in[k];
+                           V* __restrict__ out, int tail) {
+  const int64_t k = (int64_t)blockIdx.x * NOT_UNROLL * blockDim.x +
+                    threadIdx.x;
+  if (k + (NOT_UNROLL - 1) * blockDim.x < len) {
+    V v[NOT_UNROLL];
+#pragma unroll
+    for (int u = 0; u < NOT_UNROLL; ++u)
+      v[u] = __ldcs(in + k + u * blockDim.x);
+#pragma unroll
+    for (int u = 0; u < NOT_UNROLL; ++u) out[k + u * blockDim.x] = ~v[u];
+  } else {
+#pragma unroll
+    for (int u = 0; u < NOT_UNROLL; ++u)
+      if (k + u * blockDim.x < len)
+        out[k + u * blockDim.x] = ~__ldcs(in + k + u * blockDim.x);
+  }
+  if (blockIdx.x == 0 && threadIdx.x < tail) {
+    const uint32_t* tin = reinterpret_cast<const uint32_t*>(in + len);
+    uint32_t* tout = reinterpret_cast<uint32_t*>(out + len);
+    tout[threadIdx.x] = ~tin[threadIdx.x];
+  }
 }
 
 template <typename V>
@@ -80,6 +112,13 @@ constexpr int kThreads = 256;
 unsigned grid_for(int64_t len) {
   int64_t blocks = (len + kThreads - 1) / kThreads;
   if (blocks > 132 * 32) blocks = 132 * 32;
+  return (unsigned)(blocks > 0 ? blocks : 1);
+}
+
+// blocks of the complement: one per NOT_UNROLL * kThreads vectors (words)
+unsigned not_grid(int64_t len) {
+  const int64_t blocks = (len + NOT_UNROLL * kThreads - 1) /
+                         (NOT_UNROLL * kThreads);
   return (unsigned)(blocks > 0 ? blocks : 1);
 }
 
@@ -125,13 +164,13 @@ extern "C" int bitwise_not(const uint32_t* in, int64_t words, uint32_t* out,
                            void* stream) {
   if (words == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (vec_ok(in, out, words)) {
+  if (vec_ok(in, out, words - words % 4)) {
     const int64_t len = words / 4;
-    not_kernel<uint4><<<grid_for(len), kThreads, 0, s>>>(
-        (const uint4*)in, len, (uint4*)out);
+    not_kernel<uint4><<<not_grid(len), kThreads, 0, s>>>(
+        (const uint4*)in, len, (uint4*)out, (int)(words % 4));
   } else {
-    not_kernel<uint32_t><<<grid_for(words), kThreads, 0, s>>>(in, words,
-                                                                out);
+    not_kernel<uint32_t><<<not_grid(words), kThreads, 0, s>>>(in, words,
+                                                               out, 0);
   }
   return (int)cudaGetLastError();
 }

@@ -6,16 +6,22 @@ kernel behind the binarized linear layers (``repro_torch.models.quant``)
 and ``ops.popcount_gemm_bits``, the golden twin of the bank-executed
 bit-serial dot product (``repro_torch.pud.workloads``).
 
-:func:`popcount_gemm_cuda` launches ``csrc/popcount_gemm.cu``: one block
-per 64 × 64 output tile, K staged through shared memory 32 words at a time,
-a 4 × 4 register micro-tile of int32 sums per thread, ``kind`` a template
-argument, the xnor finish ``32·KB − 2·acc`` in the epilogue.  Ragged M, N
-and KB are masked in the kernel (zero words), so the reference's
-``−32·pk`` correction of its KB padding never arises and the result equals
-the reference's padded-and-corrected one.  The design is limited by the
-card's popcount issue rate (16 per clock per SM on compute capability
-9.0), not by bytes; the card's bound for the product, the ±1 int8 rate of
-its tensor cores, lies far below that ceiling.
+:func:`popcount_gemm_cuda` launches ``csrc/popcount_gemm.cu``: the packed
+words go as they are through the tensor cores' 1-bit path
+(``mma.sync.m16n8k256 .b1 .and.popc``: AND counts, 8× the bits of an
+int8 ``mma.sync`` at the same instruction rate), one block per 64 × 128
+output tile, K in stages of 512 bits through a ``cp.async`` ring.
+``xnor`` is ``32·KB − 2·popc(x ^ w)`` with ``popc(x ^ w) = pc(x) + pc(w)
+− 2·popc(x & w)``, the row popcounts ``pc`` from a first kernel into
+scratch this wrapper allocates: a call is two device kernels for xnor,
+one for and.
+Ragged edges cost no correction: words past KB and rows past M or N load
+as 0, which adds nothing to an AND count (the reference pads with zero
+words and subtracts ``32·pk`` from xnor instead).  The bound is the
+larger of the bytes (packed operands in, int32 out) and 2·M·N·32·KB
+operations at the 1-bit tensor-core rate, 8 × the data sheet's dense int8
+1,979 TOP/s (the sheet lists no 1-bit rate); at the serve shapes the
+bytes bind.
 
 :func:`popcount_gemm_plain` is the same function in plain PyTorch (the
 oracle of :mod:`.ref`, chunked over M): what a CPU tensor gets and what the
@@ -35,7 +41,7 @@ from . import ref
 KINDS = ("and", "xnor")
 
 #: kernel launches since the counts were last reset (plain calls not
-#: counted)
+#: counted); one launch = one call (two device kernels for xnor)
 launches = {"popcount_gemm": 0}
 
 
@@ -65,8 +71,8 @@ def _lib():
     from . import build
     lib = build.load("popcount_gemm")
     if lib.popcount_gemm.argtypes is None:
-        lib.popcount_gemm.argtypes = [_VP, _VP, _INT, _INT, _INT, _INT, _VP,
-                                      _VP]
+        lib.popcount_gemm.argtypes = [_VP, _VP] + [_INT] * 4 + [_VP, _VP,
+                                                               _VP]
         lib.popcount_gemm.restype = ctypes.c_int
     return lib
 
@@ -84,16 +90,18 @@ def popcount_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     if x.device != w.device:
         raise ValueError(f"x on {x.device}, w on {w.device}")
     (m, kb), n = x.shape, w.shape[0]
-    if m > 65535 * 64 or max(n, kb) >= 2 ** 26:
-        raise ValueError(f"shape ({m}, {n}, {kb}) exceeds the kernel's "
-                         f"grid (M <= 65535·64) or int32 sums (N, KB < 2²⁶)")
+    if kb >= 2 ** 26:
+        raise ValueError(f"KB = {kb} overflows the kernel's int32 sums "
+                         f"(KB < 2²⁶)")
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     if m == 0 or n == 0:        # nothing to launch
         return out
+    pc = (torch.empty(m + n, dtype=torch.int32, device=x.device)
+          if kind == "xnor" else None)  # row popcounts of x, then of w
     with torch.cuda.device(x.device):
         err = _lib().popcount_gemm(
             x.data_ptr(), w.data_ptr(), m, n, kb, KINDS.index(kind),
-            out.data_ptr(),
+            None if pc is None else pc.data_ptr(), out.data_ptr(),
             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"popcount_gemm kernel launch failed: CUDA error "

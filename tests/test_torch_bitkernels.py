@@ -155,12 +155,19 @@ def test_nary_bitwise_kernel_matches_plain_on_card(card):
 
 @pytest.mark.cuda
 def test_bitwise_not_kernel_matches_plain_on_card(card):
-    for shape in ((256, 512), (7, 1001)):
+    """Whole unrolled steps, remainders after them (vectors and a 1-3 word
+    scalar tail), a tail alone, the main-path shape, and an unaligned view
+    (the scalar kernel)."""
+    for shape in ((256, 512), (7, 1001), (1, 4097), (3, 1365), (1, 3),
+                  (1, 1), (1000, 1003), (16384, 512)):
         p = _card_words(card, *shape)
         before = BW.launches["bitwise_not"]
         got = BW.bitwise_not_cuda(p)
         assert BW.launches["bitwise_not"] == before + 1
-        assert torch.equal(got, BW.bitwise_not_plain(p))
+        assert torch.equal(got, BW.bitwise_not_plain(p)), shape
+    p = _card_words(card, 1, 4101)[:, 1:]        # 4 bytes past an alignment
+    assert p.is_contiguous() and p.data_ptr() % 16 == 4
+    assert torch.equal(BW.bitwise_not_cuda(p), BW.bitwise_not_plain(p))
 
 
 @pytest.mark.cuda

@@ -95,6 +95,52 @@ def test_popcount_gemm_xnor_is_pm1_matmul():
     assert np.array_equal(got.numpy(), pm1(xb) @ pm1(wb).T)
 
 
+#: the card kernel's output tile and the K words a row of one pipeline stage
+#: (csrc/popcount_gemm.cu: BM, BN, KW)
+TILE_M, TILE_N, STAGE_WORDS = 64, 128, 16
+
+
+def _b1_model(x: torch.Tensor, w: torch.Tensor, kind: str,
+              pad: int = 0) -> torch.Tensor:
+    """The card kernel's algorithm in plain PyTorch: the words padded with
+    ``pad`` to whole 64 x 128 tiles and 512-bit K stages, AND counts over
+    the padded words (the tensor cores' only count), then for xnor
+    ``32·KB − 2·popc(x ^ w)`` with ``popc(x ^ w) = (pc(x) − a) + (pc(w) −
+    a)`` from the row popcounts of the operands as given."""
+    (m, kb), n = x.shape, w.shape[0]
+    up = lambda v, t: max(1, -(-v // t)) * t               # noqa: E731
+    xp = torch.full((up(m, TILE_M), up(kb, STAGE_WORDS)), pad,
+                    dtype=torch.int32)
+    wp = torch.full((up(n, TILE_N), up(kb, STAGE_WORDS)), pad,
+                    dtype=torch.int32)
+    xp[:m, :kb], wp[:n, :kb] = x, w
+    a = tref.popcount_gemm(xp, wp, "and")[:m, :n]
+    if kind == "and":
+        return a
+    d = ((tref.popcount32(x).sum(1)[:, None] - a)
+         + (tref.popcount32(w).sum(1)[None, :] - a))
+    return (32 * kb - d) - d
+
+
+@pytest.mark.parametrize("kind", ["and", "xnor"])
+@pytest.mark.parametrize("m,n,kb", [(1, 1, 1), (8, 8, 2), (130, 50, 65),
+                                    (129, 193, 5), (77, 3, 7),
+                                    (200, 300, 17)])
+def test_popcount_gemm_b1_model_matches_pallas(kind, m, n, kb, J):
+    """The card kernel's algorithm where it can run -- AND counts over
+    zero-padded tiles, xnor from them and the row popcounts -- equals the
+    Pallas kernel (interpret), with no correction for the padding.  Padding
+    with ones instead would add 32 per padded word to every AND count."""
+    x, w = _words(m, kb), _words(n, kb)
+    got = _b1_model(_t(x), _t(w), kind)
+    pallas = J.ops.popcount_gemm(J.jnp.asarray(x), J.jnp.asarray(w), kind=kind)
+    assert np.array_equal(got.numpy(), np.asarray(pallas))
+    if kind == "and":
+        padded = -(-kb // STAGE_WORDS) * STAGE_WORDS - kb
+        assert torch.equal(_b1_model(_t(x), _t(w), kind, pad=-1) - got,
+                           torch.full_like(got, 32 * padded))
+
+
 @pytest.mark.parametrize("r,c", [(8, 512), (16, 1024), (13, 700), (1, 3)])
 def test_maj3_matches_pallas(r, c, J):
     a, b, cc = _words(r, c), _words(r, c), _words(r, c)
@@ -248,8 +294,17 @@ def _card_words(card, *shape, seed: int = 0) -> torch.Tensor:
 
 @pytest.mark.cuda
 def test_popcount_gemm_kernel_matches_plain_on_card(card):
+    """Tile edges (64 x 128 tiles, 16-word K stages) crossed in M, N and
+    KB, M and N below one tile, KB not a multiple of 4 and an operand 4
+    bytes off alignment (the word copies), odd N (the scalar stores), both
+    serve shapes; then the ±32·KB extremes."""
     for m, n, kb in ((8, 8, 2), (130, 50, 65), (64, 64, 32), (1, 1, 1),
-                     (300, 257, 80), (77, 3, 304)):
+                     (300, 257, 80), (77, 3, 304), (127, 255, 3),
+                     (128, 256, 4), (129, 257, 5), (255, 191, 8),
+                     (256, 193, 9), (257, 129, 33), (5, 100, 7),
+                     (100, 5, 6), (130, 140, 16), (131, 129, 20),
+                     (63, 129, 16), (65, 127, 17),
+                     (2048, 9728, 80), (2048, 2560, 304)):
         x = _card_words(card, m, kb)
         w = _card_words(card, n, kb, seed=1)
         for kind in PG.KINDS:
@@ -258,6 +313,23 @@ def test_popcount_gemm_kernel_matches_plain_on_card(card):
             assert PG.launches["popcount_gemm"] == before + 1
             assert torch.equal(got, PG.popcount_gemm_plain(x, w, kind)), \
                 (m, n, kb, kind)
+    x = _card_words(card, 70 * 8 + 1)[1:].view(70, 8)   # 4 bytes off
+    w = _card_words(card, 90, 8, seed=1)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    for kind in PG.KINDS:
+        assert torch.equal(PG.popcount_gemm_cuda(x, w, kind),
+                           PG.popcount_gemm_plain(x, w, kind)), kind
+    m, n, kb = 130, 70, 9
+    ones = torch.full((m, kb), -1, dtype=torch.int32, device=card)
+    zeros = torch.zeros((n, kb), dtype=torch.int32, device=card)
+    for x, w, want_and, want_xnor in (
+            (ones, ones[:n], 32 * kb, 32 * kb),
+            (ones, zeros, 0, -32 * kb),
+            (zeros[:1].expand(m, kb).contiguous(), zeros, 0, 32 * kb)):
+        for kind, want in (("and", want_and), ("xnor", want_xnor)):
+            got = PG.popcount_gemm_cuda(x, w, kind)
+            assert torch.equal(got, PG.popcount_gemm_plain(x, w, kind))
+            assert bool((got == want).all()), (kind, want)
     for m, n in ((0, 5), (5, 0)):       # nothing to launch, nothing counted
         before = PG.launches["popcount_gemm"]
         got = PG.popcount_gemm_cuda(_card_words(card, m, 3),
