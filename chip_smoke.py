@@ -67,7 +67,16 @@ Phases:
     logits against ``forward``, greedy agreement with a teacher-forced
     ``forward``, one merge per layer per decode step; and the same weights
     cut to 2 layers in float32 (TF32 off), card (kernel) against CPU
-    (plain) ``forward`` logits.
+    (plain) ``forward`` logits;
+12. the rest of the characterization (``characterization_path``, run
+    before the serving path): the bloom probe / insert fan-in sweep
+    (fan-in 2-16, 2,000 trials, 8192-bit rows) held to the
+    independent-op estimate, replica plans, the 4-bank nand16 MC's
+    ``stats`` (optimistic and rank-legal makespans), the plan verifier,
+    the DDR4 timing lint and the rank scheduler over ``dram`` engine logs
+    (0 findings, 0 violations; the 2-bank xor case equal to the
+    reference's numbers), Obs. 3's per-cell map, and ``draws="numpy"``
+    card == CPU for the sweep, ``stats`` and ``apa_then_write``.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -79,6 +88,7 @@ non-zero before printing a result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -126,6 +136,17 @@ D_MODEL, D_FF, TOKENS = 2560, 9728, 2048
 REF_PROGRAM_RATES = {"xor_host": 0.4933, "xor_scheduled": 0.5458,
                      "maj3_host": 0.5959, "maj3_scheduled": 0.5960,
                      "add4_host": 0.5023, "add4_scheduled": 0.5193}
+#: the reference's static analysis of the 2-bank loop engine running xor
+#: on (4, 4) words (BENCH_pr10.json "static_detail", the "_loop" keys)
+REF_STATIC_LOOP = {"timing_violations": 0, "timing_by_design": 28,
+                   "makespan_ns": 1554.5, "min_legal_makespan_ns": 1554.5,
+                   "legal_makespan_ns": 1554.5, "refresh_stall_ns": 0.0,
+                   "rank_stall_ns": 0.0, "sched_violations": 0}
+#: the workload fan-in sweep (tests/test_workloads.py's contract: MC
+#: success within 0.05 below the independent-op estimate, the bloom probe
+#: no worse than 0.02 below its narrow self at fan-in 16)
+SWEEP_FANINS, SWEEP_TRIALS = (2, 4, 8, 16), 2000
+EST_BAND, MONO_BAND = 0.05, 0.02
 PAPER_16 = {"and": 0.9494, "nand": 0.9494, "or": 0.9585, "nor": 0.9587}
 PAPER_NOT1 = 0.9837
 TRIALS, ROW_BITS = 10_000, 8192
@@ -855,6 +876,179 @@ def program_path(counts: Counts) -> dict:
     return out
 
 
+def characterization_path(counts: Counts) -> dict:
+    """The rest of the paper's characterization and the static analysis, on
+    the card at native 8192-bit rows: the bloom probe / insert fan-in sweep
+    beside the independent-op estimate, replica plans (one from the sweep,
+    one with its own add4 MC), the 4-bank nand16 MC's modeled timing
+    (``stats=``: optimistic and rank-legal makespans), the plan verifier
+    over the program zoo, the timing lint and rank scheduler over ``dram``
+    engine logs, Obs. 3's per-cell map; then ``draws="numpy"`` card == CPU
+    for the sweep, the ``stats`` dict and ``apa_then_write``.  Every
+    launch is a senseamp launch."""
+    from repro_torch import analysis
+    from repro_torch.core import charz
+    from repro_torch.core import compiler as CC
+    from repro_torch.core import reliability as R
+    from repro_torch.core.isa import PudIsa, inventory_for
+    from repro_torch.core.policy import ResidentPolicy
+    from repro_torch.core.simulator import BankSim
+    from repro_torch.pud import workloads as W
+    from repro_torch.pud.engine import PudEngine
+    out: dict = {}
+    S = counts.S
+
+    def step(name: str, t0: float, before: int) -> float:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out.setdefault("steps", {})[name] = {
+            "s": round(now - t0, 3), "senseamp": S.launches - before}
+        return now
+
+    counts.reset()
+    t0, n0 = time.perf_counter(), S.launches
+    # the workload fan-in sweep, device draws
+    sweep = charz.workload_fanin_sweep(
+        ("bloom_probe", "bloom_insert"), SWEEP_FANINS, trials=SWEEP_TRIALS,
+        row_bits=ROW_BITS, draws="device", device="cuda")
+    for name, r in sweep.items():
+        print(f"[charz] {name}: mc_success {r['mc_success']} estimate "
+              f"{r['estimate']}", flush=True)
+    for n in SWEEP_FANINS:
+        r = sweep[f"bloom_probe{n}"]
+        assert r["mc_success"] >= r["estimate"] - EST_BAND, (n, r)
+        assert r["mc_success"] < 1.0, (n, r)
+    probe = [sweep[f"bloom_probe{n}"]["mc_success"] for n in SWEEP_FANINS]
+    assert probe[-1] >= probe[0] - MONO_BAND, probe
+    out["sweep"] = sweep
+    t0, n0 = step("sweep", t0, n0), S.launches
+    # replica plans
+    pw = R.plan_workload("bloom_probe", fanin=16, target=0.999999,
+                         mc_success=sweep["bloom_probe16"]["mc_success"])
+    pa = R.plan(target=0.999999, program="add4", trials=SWEEP_TRIALS,
+                row_bits=ROW_BITS, device="cuda")
+    assert S.launches > n0, "plan(program=) ran no MC on the card"
+    for tag, pl in (("bloom_probe16", pw), ("add4", pa)):
+        print(f"[charz] plan {tag}: replicas {pl.replicas} p_raw {pl.p_raw} "
+              f"p_final {pl.p_final} ops_total {pl.ops_total}", flush=True)
+        assert pl.replicas % 2 == 1 and 0.0 < pl.p_raw < 1.0, pl
+    out["plans"] = {"bloom_probe16": dataclasses.asdict(pw),
+                    "add4": dataclasses.asdict(pa)}
+    t0, n0 = step("plans", t0, n0), S.launches
+    # stats: the 4-bank nand16 MC's modeled timing
+    stats: dict = {}
+    rate = charz.mc_boolean_success("nand", 16, trials=TRIALS,
+                                    row_bits=ROW_BITS, banks=4, stats=stats,
+                                    device="cuda")
+    print(f"[charz] nand16 banks=4 {rate} stats " + json.dumps(stats),
+          flush=True)
+    assert abs(rate - PAPER_16["nand"]) < 0.04, rate
+    assert stats["legal_makespan_ns"] >= stats["makespan_ns"] > 0.0, stats
+    assert S.launches - n0 == charz.MC_PAIR_GROUPS
+    out["nand16_banks4"], out["stats"] = rate, stats
+    t0, n0 = step("stats", t0, n0), S.launches
+    # static analysis: the verifier over the zoo's plans on a card bank
+    findings, verify_s = 0, 0.0
+    for name in charz.PROGRAMS + charz.WORKLOAD_PROGRAMS:
+        prog = charz.get_program(name)
+        for pol in ("greedy", "scheduled"):
+            isa = PudIsa(BankSim(row_bits=ROW_BITS, error_model="ideal",
+                                 seed=11, device="cuda"))
+            plan = CC.schedule_resident(prog, isa, policy=pol, verify=False)
+            tv = time.perf_counter()
+            findings += len(analysis.verify_plan(prog, plan))
+            verify_s += time.perf_counter() - tv
+    # the reference's 2-bank loop engine case, then program + add under
+    # verify=True on 4 banks: every plan verified, logs linted, scheduled
+    loop = PudEngine("dram", banks=2, resident=ResidentPolicy.SCHEDULED,
+                     verify=True, device="cuda")
+    rng = np.random.default_rng(7)
+    loop.run_program(charz.get_program("xor"), {
+        k: rng.integers(0, 2 ** 32, (4, 4), dtype=np.uint32)
+        for k in ("a", "b")})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(909)
+    eng = PudEngine("dram", banks=4, verify=True, device="cuda")
+    twin = PudEngine("torch", device="cuda")
+    planes = {f"{c}{i}": _words(gen, 16, 256) for c in "ab"
+              for i in range(4)}
+    got = eng.run_program(W.dot_program(4), planes)
+    want = twin.run_program(W.dot_program(4), planes)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    a, b = _words(gen, 8, 16, 256), _words(gen, 8, 16, 256)
+    assert torch.equal(eng.add(a, b), twin.add(a, b))
+    static = {}
+    for tag, e in (("loop", loop), ("program_add", eng)):
+        rep = analysis.lint_bank_array(e._array)
+        tl = e.schedule_timing()
+        static[tag] = {
+            "timing_violations": rep.violations,
+            "timing_by_design": sum(sum(r.by_design.values())
+                                    for r in rep.per_bank),
+            "makespan_ns": rep.makespan_ns,
+            "min_legal_makespan_ns": rep.min_legal_makespan_ns,
+            "legal_makespan_ns": tl.legal_makespan_ns,
+            "refresh_stall_ns": tl.refresh_stall_ns,
+            "rank_stall_ns": tl.rank_stall_ns,
+            "sched_violations": tl.relint_violations}
+        assert rep.violations == 0 and tl.relint_violations == 0, static
+    print(f"[static] verify findings {findings} over "
+          f"{2 * len(charz.PROGRAMS + charz.WORKLOAD_PROGRAMS)} zoo plans "
+          f"({round(verify_s * 1e3, 3)} ms); " + json.dumps(static),
+          flush=True)
+    assert findings == 0
+    assert static["loop"] == REF_STATIC_LOOP, static["loop"]
+    out["static"] = static | {"verify_findings": findings,
+                              "verify_ms_total": verify_s * 1e3}
+    t0, n0 = step("static", t0, n0), S.launches
+    # Obs. 3: 100 %-reliable cells of the 4-input AND's per-cell map, on
+    # the card's draws and on the reference's (numpy) draws, card and CPU
+    obs3 = {mode: charz.observation3_perfect_cells(
+        trials=300, draws=draws, device=dev)
+        for mode, draws, dev in (("device", "device", "cuda"),
+                                 ("numpy", "numpy", "cuda"),
+                                 ("numpy_cpu", "numpy", "cpu"))}
+    print("[charz] observation3 " + json.dumps(obs3), flush=True)
+    assert obs3["numpy"]["n_cells"] == obs3["device"]["n_cells"]
+    assert {k: v for k, v in obs3["numpy"].items() if k != "mean"} == \
+        {k: v for k, v in obs3["numpy_cpu"].items() if k != "mean"}
+    assert abs(obs3["numpy"]["mean"] - obs3["numpy_cpu"]["mean"]) < 1e-12
+    # the same chip identity: only the per-trial draws differ
+    assert abs(obs3["device"]["mean"] - obs3["numpy"]["mean"]) < 0.01, obs3
+    out["obs3"] = obs3
+    t0, n0 = step("obs3", t0, n0), S.launches
+    # numpy draws: card == CPU
+    par = {}
+    for dev in ("cuda", "cpu"):
+        st: dict = {}
+        sw = charz.workload_fanin_sweep(
+            ("bloom_probe", "bloom_insert"), SWEEP_FANINS, trials=64,
+            row_bits=2048, draws="numpy", device=dev)
+        r = charz.mc_boolean_success("nand", 16, trials=108, row_bits=2048,
+                                     banks=4, stats=st, draws="numpy",
+                                     device=dev)
+        sim = BankSim(row_bits=ROW_BITS, error_model="analog", trials=64,
+                      seed=5, draws="numpy", device=dev)
+        rf, rl = inventory_for(sim.module, sim.seed).choose(4, 4, 0)
+        pat = np.random.default_rng(5).integers(0, 2, ROW_BITS)
+        act = sim.apa_then_write(sim.global_addr(0, rf),
+                                 sim.global_addr(1, rl), pat)
+        written = sim.snapshot_rows(0, act.rows_f).cpu()
+        sim.apa(sim.global_addr(0, rf), sim.global_addr(1, rl))
+        par[dev] = (sw, r, st, written, sim.snapshot_rows(1, act.rows_l).cpu())
+    assert par["cuda"][:3] == par["cpu"][:3], "sweep / stats: card != CPU"
+    assert torch.equal(par["cuda"][3], par["cpu"][3])
+    assert torch.equal(par["cuda"][4], par["cpu"][4]), "apa_then_write"
+    print("[parity] fan-in sweep, stats, apa_then_write + APA, "
+          "draws=numpy: cuda == cpu", flush=True)
+    step("parity", t0, n0)
+    c = counts.read("characterization")
+    assert c["senseamp_resolve"] > 0 and \
+        sum(c.values()) == c["senseamp_resolve"], c
+    print("[charz] steps " + json.dumps(out["steps"]), flush=True)
+    return out
+
+
 def maj3_path(counts: Counts) -> None:
     """``ops.maj3``, the reference's entry point of its own, once at the
     (16384, 512) shape, held to the direct computation."""
@@ -1450,6 +1644,8 @@ def main() -> int:
     print("[program] " + json.dumps(prog_out), flush=True)
     maj3_path(counts)
     t0 = _phase("program_path", t0, times)
+    charz_out = characterization_path(counts)
+    t0 = _phase("characterization_path", t0, times)
 
     # ---- the decoder LM behind the serving engine ----
     serve_out, params = serve_path(counts, card)
@@ -1468,6 +1664,9 @@ def main() -> int:
                                  if c[r["name"]]}
         assert r["launches"] > 0, r["name"]
     print("[dram] " + json.dumps(dram_out), flush=True)
+    print("[characterization] " + json.dumps(
+        {k: charz_out[k] for k in ("stats", "static", "obs3", "plans")}),
+        flush=True)
 
     print(card)
     print(json.dumps({"kernels": rows}))

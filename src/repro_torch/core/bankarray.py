@@ -18,9 +18,10 @@ other bank replays the frozen decisions (:meth:`schedule_decisions`,
 round-trips the source bank's planes through the host (DDR4 has no
 bank-to-bank path), charged to the destination bank's log.
 
-Not ported yet: the fused bank-stacked ISA (``fused_isa``) and the
-rank-legal makespan (``legal_makespan_ns``, which needs
-``repro.analysis``).
+:meth:`makespan_ns` is optimistic (every bank issues from t=0 with a
+private command bus); :meth:`legal_makespan_ns` is the rank-legal
+counterpart from :mod:`repro_torch.analysis.schedule`.  Not ported yet:
+the fused bank-stacked ISA (``fused_isa``, ROADMAP A-3).
 """
 from __future__ import annotations
 
@@ -137,6 +138,15 @@ class BankArray:
         array finishes with its slowest bank (no tRRD/tFAW arbitration,
         no refresh)."""
         return max(self.bank_time_ns())
+
+    def legal_makespan_ns(self) -> float:
+        """Rank-legal array execution time: the makespan of the
+        :func:`repro_torch.analysis.schedule_bank_array` event-driven
+        schedule of this array's command logs — per-bank serial order
+        preserved, cross-bank ACTs arbitrated under tRRD/tFAW, REF injected
+        every tREFI.  Always >= :meth:`makespan_ns`."""
+        from .. import analysis     # analysis sits above core
+        return float(analysis.schedule_bank_array(self).legal_makespan_ns)
 
     def total_time_ns(self) -> float:
         """Sum of per-bank times — what one bank would have taken."""

@@ -17,15 +17,21 @@ DRAM Bender methodology.  Activation pairs are stratified over the 3x3
 Program-level characterization (:func:`mc_program_success`) measures the
 same statistic one level up: whole compiled programs (XOR from NANDs, MAJ3,
 ripple-carry adders) on the noisy bank through ``compiler.run_sim``,
-host-staged or resident.
+host-staged or resident; :func:`mc_workload_success` and
+:func:`workload_fanin_sweep` do so for the workload programs (Bloom probe /
+insert, bit-serial dot) beside the independent-op estimate
+(:func:`program_success_estimate`).  ``stats=`` receives the modeled
+multi-bank timing: the optimistic makespan and the rank-legal one from
+:mod:`repro_torch.analysis.schedule`.
 
-Every entry point takes ``device=`` (default ``"cuda"``).  Not ported yet:
-the fused multi-bank path (``fused=True`` raises; with ``banks > 1`` the
-default runs the per-bank loop, which the reference's fused path matches
-bit for bit), the modeled-timing ``stats=`` (it needs ``repro.analysis``),
-the workload-level Monte-Carlo (``mc_workload_success``,
-``workload_fanin_sweep``) and the closed-form-only figure drivers other
-than Figs. 7 and 15.
+The other figure drivers (Figs. 5, 8-12, 16-21 and the abstract's
+takeaways) are the calibrated closed form, as in the reference; Obs. 3
+(:func:`observation3_perfect_cells`) is a per-cell MC map.
+
+Every Monte-Carlo entry point takes ``device=`` (default ``"cuda"``).  Not
+ported yet: the fused multi-bank path (``fused=True`` raises, ROADMAP A-3;
+with ``banks > 1`` the default runs the per-bank loop, which the
+reference's fused path matches bit for bit).
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ from . import compiler as CC
 from .analog import CLOSE, FAR, MIDDLE
 from .bankarray import BankArray
 from . import decoder as DEC
-from .device import get_module
+from .device import MODULE_ZOO, get_module
 from .isa import CapabilityError, PudIsa
 from .policy import ResidentPolicy, coerce_resident
 from .simulator import DRAWS, BankSim, resolve_device, torch_seed
@@ -71,15 +77,36 @@ def _check_banks(banks, *, batched: bool) -> int:
     return banks
 
 
-def _check_unported(fused, stats) -> None:
+def _check_fused(fused) -> None:
     if fused:
         raise NotImplementedError(
-            "fused=True: the fused multi-bank path is not ported yet (the "
-            "default per-bank loop gives the same result)")
-    if stats is not None:
-        raise NotImplementedError(
-            "stats=: modeled multi-bank timing needs repro.analysis, which "
-            "is not ported yet")
+            "fused=True: the fused multi-bank path (core/fused.py) is not "
+            "ported yet, ROADMAP A-3 (the default per-bank loop gives the "
+            "same result)")
+
+
+def _fill_stats(stats: dict | None, arr: BankArray, groups: int,
+                tg: int) -> None:
+    """Record modeled concurrent-bank timing into a caller-passed dict:
+    the optimistic independent-bank ``makespan_ns`` and the rank-legal
+    ``legal_makespan_ns`` (the :mod:`repro_torch.analysis.schedule`
+    event-driven schedule of the same logs), with the legality cost split
+    into cross-bank arbitration (``rank_stall_ns``) and refresh
+    (``refresh_stall_ns``) stalls."""
+    if stats is None:
+        return
+    from .. import analysis         # analysis sits above core
+    tl = analysis.schedule_bank_array(arr)
+    stats.update({
+        "banks": arr.banks, "groups": groups, "trials_per_group": tg,
+        "bank_time_ns": arr.bank_time_ns(),
+        "makespan_ns": arr.makespan_ns(),
+        "total_time_ns": arr.total_time_ns(),
+        "legal_makespan_ns": tl.legal_makespan_ns,
+        "rank_stall_ns": tl.rank_stall_ns,
+        "refresh_stall_ns": tl.refresh_stall_ns,
+        "refreshes": tl.refreshes,
+    })
 
 
 class _Operands:
@@ -222,9 +249,10 @@ def mc_boolean_success(op: str, n: int, *, trials: int = 200,
     stratified activation pair in one episode each; ``batched=False`` is
     the per-trial reference (one episode per trial, scrambled pair walk).
     ``banks`` deals the groups over a :class:`BankArray` of independent
-    chips (``dealer``: round-robin by default).
+    chips (``dealer``: round-robin by default).  ``stats``, if a dict,
+    receives the modeled concurrent-bank timing (:func:`_fill_stats`).
     """
-    _check_unported(fused, stats)
+    _check_fused(fused)
     banks = _check_banks(banks, batched=batched)
     dev = resolve_device(device)
     draw = _Operands(seed, draws, dev)
@@ -257,6 +285,7 @@ def mc_boolean_success(op: str, n: int, *, trials: int = 200,
         got = isa.nary_op(op, ops.swapaxes(0, 1), pair=pair)
         ok += _hits(got, _want_nary(op, ops, dim=1))
         tot += got.numel()
+    _fill_stats(stats, arr, groups, tg)
     return ok / tot
 
 
@@ -269,7 +298,7 @@ def mc_not_success(n_dst: int = 1, *, trials: int = 200, row_bits: int = 2048,
                    stats: dict | None = None, draws: str = "device",
                    device: str | torch.device = "cuda") -> float:
     """NOT-protocol MC success; knobs as :func:`mc_boolean_success`."""
-    _check_unported(fused, stats)
+    _check_fused(fused)
     banks = _check_banks(banks, batched=batched)
     dev = resolve_device(device)
     draw = _Operands(seed, draws, dev)
@@ -301,6 +330,7 @@ def mc_not_success(n_dst: int = 1, *, trials: int = 200, row_bits: int = 2048,
         got = isa.op_not(bits, n_dst=n_dst, pair=pair)
         ok += _hits(got, 1 - bits)
         tot += got.numel()
+    _fill_stats(stats, arr, groups, tg)
     return ok / tot
 
 
@@ -398,6 +428,25 @@ def get_program(name: str) -> CC.Program:
                      f"{PROGRAMS + WORKLOAD_PROGRAMS})")
 
 
+def program_success_estimate(name: "str | CC.Program",
+                             module: str | None = None, **kw) -> float:
+    """Independent-op estimate: product of per-instruction closed-form
+    success rates on the given module.  A lower bound in spirit — real
+    programs do better because an op error only corrupts an output bit if
+    it happens to propagate to it."""
+    m = get_module(module) if module else get_module()
+    kw = {"mfr": m.manufacturer.value, "density_gb": m.density_gb,
+          "die_rev": m.die_rev, "speed_mts": m.speed_mts} | kw
+    p = 1.0
+    prog = get_program(name) if isinstance(name, str) else name
+    for i in prog.instrs:
+        if i.op == "not":
+            p *= A.not_success(1, **kw)
+        elif i.op in ("and", "or", "nand", "nor"):
+            p *= A.boolean_success_avg(i.op, max(len(i.srcs), 2), **kw)
+    return p
+
+
 def mc_program_success(program: str | CC.Program, *, trials: int = 200,
                        row_bits: int = 2048, seed: int = 0,
                        module: str | None = None, temp_c: float = 50.0,
@@ -421,9 +470,10 @@ def mc_program_success(program: str | CC.Program, *, trials: int = 200,
     ``SCHEDULED`` the search runs once (memoized) and later groups replan
     with the frozen decisions.  ``banks`` deals the groups over a
     :class:`BankArray` (``dealer``); sibling banks replay bank 0's
-    scheduler decisions.
+    scheduler decisions.  ``stats``, if a dict, receives the modeled
+    concurrent-bank timing.
     """
-    _check_unported(fused, stats)
+    _check_fused(fused)
     prog = get_program(program) if isinstance(program, str) else program
     pol = coerce_resident(resident, where="charz.mc_program_success")
     names = sorted({i.name for i in prog.instrs if i.op == "input"})
@@ -472,6 +522,7 @@ def mc_program_success(program: str | CC.Program, *, trials: int = 200,
             got = CC.run_sim(prog, ins, isa, trials=tg, resident=pol,
                              plan=plan)
             score(got, ins, isa.width)
+        _fill_stats(stats, arr, groups, tg)
         return ok / tot
     sim = BankSim(module or get_module(), row_bits=row_bits, seed=seed,
                   temp_c=temp_c, error_model="analog", draws=draws,
@@ -481,6 +532,50 @@ def mc_program_success(program: str | CC.Program, *, trials: int = 200,
         ins = {n: draw.bits((isa.width,)) for n in names}
         score(CC.run_sim(prog, ins, isa), ins, isa.width)
     return ok / tot
+
+
+# ---------------------------------------------------------------------------
+# Workload-level Monte-Carlo (compiled application programs)
+# ---------------------------------------------------------------------------
+def mc_workload_success(workload: str, *, fanin: int | None = None,
+                        **kw) -> float:
+    """Program-level MC success of one named workload program
+    (``WORKLOAD_PROGRAMS``): the per-output-bit success of the compiled
+    bloom probe/insert or bit-serial dot program on the noisy bank.
+    ``fanin`` parameterizes the program (``bloom_probe`` fan-in =
+    n_hashes, ``dot_bitserial`` = K bit positions); remaining kwargs are
+    :func:`mc_program_success`'s (trials, banks, resident, draws,
+    device, ...)."""
+    if workload not in WORKLOAD_PROGRAMS:
+        raise ValueError(f"unknown workload {workload!r} "
+                         f"(want one of {WORKLOAD_PROGRAMS})")
+    name = workload if fanin is None else f"{workload}{fanin}"
+    return mc_program_success(get_program(name), **kw)
+
+
+def workload_fanin_sweep(workloads=("bloom_probe", "bloom_insert"),
+                         fanins=(2, 4, 8, 16), **kw) -> dict:
+    """Success vs fan-in for the bloom probe/insert programs — the paper's
+    many-input AND/OR measured at *workload* fan-ins, with the closed-form
+    independent-op estimate next to each MC number (the
+    ``reliability.plan`` composition contract).  ``kw`` goes to
+    :func:`mc_program_success` (``device=`` defaults to ``"cuda"``).
+
+    Returns ``{f"{workload}{fanin}": {"mc_success", "estimate"}}``.
+    """
+    est_kw = {k: kw[k] for k in ("temp_c",) if k in kw}
+    module = kw.get("module")
+    out: dict[str, dict] = {}
+    for wl in workloads:
+        for n in fanins:
+            name = f"{wl}{n}"
+            out[name] = {
+                "mc_success": float(mc_program_success(
+                    get_program(name), **kw)),
+                "estimate": float(program_success_estimate(
+                    name, module=module, **est_kw)),
+            }
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -506,8 +601,16 @@ def model_not_success(n_dst: int = 1, *, trials: int = 10_000,
 
 
 # ---------------------------------------------------------------------------
-# The paper's figures on the Monte-Carlo path
+# One function per paper figure (closed form; Figs. 7 / 15 add the MC)
 # ---------------------------------------------------------------------------
+def fig5_activation_coverage(module: str | None = None, seed: int = 0) -> dict:
+    """Coverage of each N_RF:N_RL activation type (Fig. 5)."""
+    m = get_module(module) if module else get_module()
+    got = DEC.coverage(m, seed=seed)
+    paper = {f"{a}:{b}": c for (a, b), c in DEC.FIG5_COVERAGE}
+    return {"model": got, "paper": paper}
+
+
 def fig7_not_vs_dst_rows(mc: bool = False, trials: int = 100,
                          batched: bool = True, *, draws: str = "device",
                          device: str | torch.device = "cuda") -> dict:
@@ -544,3 +647,164 @@ def fig15_ops_vs_inputs(mc: bool = False, trials: int = 60,
     out["paper_16"] = {"and": 0.9494, "nand": 0.9494, "or": 0.9585,
                        "nor": 0.9587}
     return out
+
+
+def fig8_not_activation_patterns() -> dict:
+    """NOT success per N_RF:N_RL type (Obs. 5)."""
+    out = {}
+    for n in (1, 2, 4, 8, 16):
+        out[f"{n}:{n}"] = A.not_success(n, pattern="NN")
+        out[f"{n}:{2*n}"] = A.not_success(2 * n, pattern="N2N")
+    adv = float(np.mean([A.not_success(d, pattern="N2N")
+                         - A.not_success(d, pattern="NN")
+                         for d in (2, 4, 8, 16)]))
+    out["n2n_advantage"] = adv
+    out["paper_n2n_advantage"] = 0.0941
+    return out
+
+
+def fig9_not_distance_heatmap() -> dict:
+    """NOT success by (src region, dst region) (Obs. 6)."""
+    grid = {}
+    for rs in (CLOSE, MIDDLE, FAR):
+        for rd in (CLOSE, MIDDLE, FAR):
+            vals = [A.not_success(1, pattern="NN", src_region=rs,
+                                  dst_region=rd)]
+            vals += [A.not_success(d, pattern="N2N", src_region=rs,
+                                   dst_region=rd) for d in (2, 4, 8, 16, 32)]
+            grid[f"{REGION_NAMES[rs]}-{REGION_NAMES[rd]}"] = \
+                float(np.mean(vals))
+    grid["paper_middle-far"] = 0.8502
+    grid["paper_far-close"] = 0.4416
+    return grid
+
+
+def fig10_not_temperature() -> dict:
+    """NOT success vs temperature (Fig. 10)."""
+    out = {}
+    for d in NOT_DSTS:
+        pattern = "NN" if d == 1 else "N2N"
+        out[d] = {t: A.not_success(d, pattern=pattern, temp_c=t)
+                  for t in TEMPS}
+    return out
+
+
+def fig11_not_speed() -> dict:
+    """NOT success vs speed grade (Fig. 11)."""
+    out = {}
+    for d in (1, 2, 4, 8):
+        out[d] = {s: A.not_success(d, pattern="NN" if d == 1 else "N2N",
+                                   speed_mts=s)
+                  for s in (2133, 2400, 2666)}
+    return out
+
+
+def fig12_not_die_revision() -> dict:
+    """NOT×1 success per NOT-capable module of the zoo (Fig. 12)."""
+    out = {}
+    for name, m in MODULE_ZOO.items():
+        if not m.supports_not:
+            continue
+        out[name] = A.not_success(
+            1, pattern="NN", mfr=m.manufacturer.value,
+            density_gb=m.density_gb, die_rev=m.die_rev,
+            speed_mts=m.speed_mts)
+    return out
+
+
+def fig16_k_dependence() -> dict:
+    """Success vs the number k of logic-1 operands (Fig. 16)."""
+    out = {}
+    for op, n in (("and", 4), ("and", 16), ("or", 4), ("or", 16)):
+        ks = np.arange(n + 1)
+        out[f"{op}{n}"] = A.boolean_success(op, n, ks).tolist()
+    return out
+
+
+def fig17_ops_distance_heatmap() -> dict:
+    """Success by (compute region, reference region) (Fig. 17)."""
+    out = {}
+    for op in OPS:
+        g = np.mean([A.boolean_success_avg_grid(op, n) for n in NS], axis=0)
+        grid = {f"{REGION_NAMES[rc]}-{REGION_NAMES[rr]}": float(g[rc, rr])
+                for rc in (CLOSE, MIDDLE, FAR) for rr in (CLOSE, MIDDLE, FAR)}
+        vals = list(grid.values())
+        grid["spread"] = max(vals) - min(vals)
+        out[op] = grid
+    out["paper_spread"] = {"and": 0.2336, "nand": 0.2370, "or": 0.1042,
+                           "nor": 0.1050}
+    return out
+
+
+def fig18_data_pattern() -> dict:
+    """All-0/1 vs random operand patterns (Fig. 18)."""
+    out = {}
+    for op in OPS:
+        out[op] = {
+            n: {"all01": A.boolean_success_avg(op, n, random_pattern=False),
+                "random": A.boolean_success_avg(op, n, random_pattern=True)}
+            for n in NS}
+        out[op]["avg_delta"] = float(np.mean(
+            [out[op][n]["all01"] - out[op][n]["random"] for n in NS]))
+    out["paper_avg_delta"] = {"and": 0.0143, "nand": 0.0139, "or": 0.0198,
+                              "nor": 0.0197}
+    return out
+
+
+def fig19_ops_temperature() -> dict:
+    """Boolean-op success vs temperature (Fig. 19)."""
+    out = {}
+    for op in OPS:
+        out[op] = {n: {t: A.boolean_success_avg(op, n, temp_c=t)
+                       for t in TEMPS} for n in NS}
+        out[op]["max_delta"] = max(
+            abs(out[op][n][95] - out[op][n][50]) for n in NS)
+    out["paper_max_delta"] = {"and": 0.0166, "nand": 0.0165, "or": 0.0163,
+                              "nor": 0.0164}
+    return out
+
+
+def fig20_ops_speed() -> dict:
+    """Boolean-op success vs speed grade (Fig. 20)."""
+    out = {}
+    for op in OPS:
+        out[op] = {n: {s: A.boolean_success_avg(op, n, speed_mts=s)
+                       for s in (2133, 2400, 2666)} for n in NS}
+    out["paper_nand4_2133_2400"] = 0.2989
+    return out
+
+
+def fig21_ops_die_revision() -> dict:
+    """Boolean-op success per density / die revision (Fig. 21)."""
+    out = {}
+    for dens, rev in ((4, "A"), (4, "M"), (8, "A"), (8, "M")):
+        out[f"hynix_{dens}gb_{rev}"] = {
+            op: {n: A.boolean_success_avg(op, n, density_gb=dens, die_rev=rev)
+                 for n in NS} for op in OPS}
+    return out
+
+
+def observation3_perfect_cells(trials: int = 300, *, draws: str = "device",
+                               device: str | torch.device = "cuda") -> dict:
+    """Obs. 3: existence of 100%-success cells (MC, per-cell map of the
+    4-input AND)."""
+    m = measure_cell_map("and", 4, trials=trials, draws=draws,
+                         device=device)
+    return {
+        "n_cells": m.numel(),
+        "perfect_cells": int((m >= 1.0).sum()),
+        "zero_cells": int((m <= 0.0).sum()),
+        "mean": float(m.mean()),
+    }
+
+
+def takeaway_tables() -> dict:
+    """The four headline numbers of the abstract."""
+    return {
+        "not_1dst": {"model": A.not_success(1), "paper": 0.9837},
+        "nand16": {"model": A.boolean_success_avg("nand", 16),
+                   "paper": 0.9494},
+        "nor16": {"model": A.boolean_success_avg("nor", 16), "paper": 0.9587},
+        "and16": {"model": A.boolean_success_avg("and", 16), "paper": 0.9494},
+        "or16": {"model": A.boolean_success_avg("or", 16), "paper": 0.9585},
+    }

@@ -37,9 +37,8 @@ executors share the IR:
 
 The planner is host logic over the ISA's cost model, copied from the
 reference so that, under the same program and bank, its plans equal the
-reference's step for step.  The static plan verifier the reference hooks
-into :func:`schedule_resident` (``repro.analysis``) is not ported yet:
-``verify=True`` raises.
+reference's step for step; :func:`schedule_resident` checks its final plan
+with the port's static verifier (:mod:`repro_torch.analysis`).
 """
 from __future__ import annotations
 
@@ -302,16 +301,6 @@ def run_ideal(prog: Program, inputs: dict,
         else:
             raise ValueError(i.op)
     return {k: regs[r] for k, r in prog.outputs.items()}
-
-
-def check_verify(verify: bool | None) -> None:
-    """The port's plan-verification tri-state: ``None`` and ``False`` plan
-    without verifying, ``True`` raises — the static plan verifier
-    (``repro.analysis.verify_plan`` in the reference) is not ported yet."""
-    if verify:
-        raise NotImplementedError(
-            "verify=True: the static plan verifier (repro.analysis."
-            "verify_plan) is not ported yet (ROADMAP A-5)")
 
 
 def _word_in(isa: PudIsa, name: str, v, want) -> torch.Tensor:
@@ -1162,17 +1151,20 @@ def schedule_resident(prog: Program, isa: PudIsa, *,
     is the *serial* plan time (``Program.cost(plan=...).time_ns``): the
     dup/spill alternatives execute on one bank, where serial time is
     exact; rank-level arbitration costs are a property of the whole
-    array (the reference prices them in ``repro.analysis``, not ported
-    yet).
+    array and are priced separately by
+    :func:`repro_torch.analysis.schedule_bank_array`.
 
     ``carry`` seeds the planner's in-bank constant-row cache and
     ``pins``/``pin_inputs`` carry pinned *input-word* rows (cross-block
     residency: see :class:`ResidentSession`).
 
-    ``verify``: the reference checks the final plan statically with
-    ``repro.analysis.verify_plan``; that verifier is not ported yet
-    (ROADMAP A-5).  ``None`` and ``False`` plan without verifying;
-    ``True`` raises ``NotImplementedError`` before planning.
+    ``verify`` statically checks the *final* plan (search attempts are
+    never verified) with :func:`repro_torch.analysis.verify_plan` — a
+    symbolic row-liveness replay plus exact command-log reconciliation —
+    and raises :class:`repro_torch.analysis.PlanVerificationError` on any
+    ERROR finding.  ``None`` (the default) defers to
+    :func:`repro_torch.analysis.default_verify`: on under pytest or
+    ``FCDRAM_VERIFY=1``, off everywhere else.
     ``_fixed=(order, forced, dup_hints, dup_enabled)`` skips the search
     and replans with known, already-adjudicated decisions (two planner
     passes); without it, the search result is memoized per (program
@@ -1200,12 +1192,21 @@ def schedule_resident(prog: Program, isa: PudIsa, *,
     """
     if policy not in ("greedy", "scheduled"):
         raise ValueError(f"unknown resident policy {policy!r}")
-    check_verify(verify)
     if duplicate is None:
         duplicate = policy == "scheduled"
     mi = metric_index(objective)     # validates the objective up front
 
     def verified(pl: ResidentPlan) -> ResidentPlan:
+        # static verification of the final plan only (search attempts
+        # are intermediate state); lazy import — analysis sits above the
+        # compiler in the layering
+        from .. import analysis
+        do = analysis.default_verify() if verify is None else verify
+        if do:
+            findings = [f for f in analysis.verify_plan(
+                prog, pl, carry=carry, pins=pins) if f.severity == "error"]
+            if findings:
+                raise analysis.PlanVerificationError(findings)
         return pl
 
     if policy == "greedy":
@@ -1508,9 +1509,7 @@ class ResidentSession:
         self.duplicate = duplicate
         #: dup-vs-spill gate metric (see ``isa.OBJECTIVES``)
         self.objective = objective
-        #: static plan verification tri-state (``True`` raises: the
-        #: verifier is not ported yet)
-        check_verify(verify)
+        #: static plan verification tri-state (None = default_verify())
         self.verify = verify
         self._carry: dict | None = None
         #: pre-adjudicated scheduler decisions — seeded by BankArray so

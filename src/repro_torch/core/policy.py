@@ -16,11 +16,8 @@ bool/str) coerce through :func:`coerce_resident`, which emits a
 :class:`DeprecationWarning` **once per call site** and maps them onto the
 enum; enum members never warn.
 
-Differences from the reference: the backends are the port's
-(``"torch"``, ``"kernel"``, ``"dram"``; default ``"kernel"``), and the
-static plan verifier (``repro.analysis``) is not ported yet, so
-:meth:`EngineConfig.resolved_verify` resolves ``None`` to ``False`` (plan
-without verifying) and a plan made under ``verify=True`` raises.
+The one difference from the reference: the backends are the port's
+(``"torch"``, ``"kernel"``, ``"dram"``; default ``"kernel"``).
 """
 from __future__ import annotations
 
@@ -112,9 +109,11 @@ class EngineConfig:
     chips (the other backends have no banks).  ``fused`` is the multi-bank
     fused-execution tri-state of the reference (``None`` auto, ``False``
     per-bank loop, ``True`` forced).  ``verify`` is the static
-    plan-verification tri-state: ``None`` and ``False`` plan without
-    verifying; ``True`` raises when a resident plan is made (the verifier
-    is not ported yet, ROADMAP A-5).
+    plan-verification tri-state: ``True`` verifies every resident plan the
+    engine schedules (:func:`repro_torch.analysis.verify_plan`), ``False``
+    never does, and ``None`` (the default) defers to
+    :func:`repro_torch.analysis.default_verify` — on under pytest/debug,
+    off elsewhere — resolved by :meth:`resolved_verify`.
     """
 
     backend: str = "kernel"
@@ -151,9 +150,11 @@ class EngineConfig:
                 else ResidentPolicy.HOST)
 
     def resolved_verify(self) -> bool:
-        """The effective plan-verification switch (see ``verify``):
-        ``None`` resolves to ``False`` until the verifier is ported."""
-        return bool(self.verify)
+        """The effective plan-verification switch (see ``verify``)."""
+        if self.verify is not None:
+            return self.verify
+        from .. import analysis
+        return analysis.default_verify()
 
     def with_(self, **changes) -> "EngineConfig":
         """A copy with the given fields replaced (frozen-friendly)."""

@@ -654,6 +654,31 @@ class BankSim:
             self._maj_restore(l_sub, rows_l, self._other_slice(l_cols), rng)
         return act
 
+    def apa_then_write(self, rf_global: int, rl_global: int,
+                       pattern) -> DEC.Activation:
+        """§4.2 reverse-engineering methodology: APA followed by a WR that
+        overdrives the sense amps (Obs. 1 semantics): the exact pattern
+        lands in every R_F row and its complement in the shared half of
+        every R_L row.  ``pattern`` is a (row_bits,) numpy array or
+        tensor."""
+        rps = self.geom.rows_per_subarray
+        f_sub, f_row = divmod(rf_global, rps)
+        l_sub, l_row = divmod(rl_global, rps)
+        act = DEC.activation_pattern(self.module, f_row, l_row, seed=self.seed)
+        self.log.add("APA+WR", 30.0, ENERGY_PJ["act"] * (act.n_rf + act.n_rl),
+                     bank=self.bank, sub=f_sub)
+        if act.n_rf == 0:
+            return act
+        pattern = self.as_tensor(pattern)[self._perm_t]     # storage order
+        # map first: a first touch can grow (reallocate) the slot buffers
+        rows_f = self._map_rows(f_sub, act.rows_f)
+        rows_l = self._map_rows(l_sub, act.rows_l)
+        arr_f, arr_l = self._cells(f_sub), self._cells(l_sub)
+        _lo, _f_sl, l_sl = self._col_slices(f_sub, l_sub)
+        arr_f[:, self._index(rows_f)] = pattern      # exact pattern (Obs. 1)
+        arr_l[:, self._index(rows_l), l_sl] = 1.0 - pattern[l_sl]
+        return act
+
     # ---------------- high-level op helpers (ISA entry points) ----------------
     def op_not(self, src_global: int, dst_global: int, *,
                n_dst: int | None = None) -> DEC.Activation:

@@ -36,11 +36,10 @@ resident-register executor: intermediates chain in-bank via RowClone, and
 chunk blocks of one (bank, size) chain through a ``ResidentSession``
 (constant rows and pinned input words stay in the bank between blocks).
 Under the scheduled policy bank 0 runs the planner search and sibling
-banks replay its frozen decisions.  ``verify=True`` raises: the static
-plan verifier is not ported yet.
-
-Not ported yet (ROADMAP): :meth:`PudEngine.schedule_timing` (needs
-``repro.analysis``) raises ``NotImplementedError``.
+banks replay its frozen decisions.  ``verify`` checks every resident plan
+with the static verifier (:mod:`repro_torch.analysis`), and
+:meth:`PudEngine.schedule_timing` gives the rank-legal schedule of the
+backend's command logs.
 """
 from __future__ import annotations
 
@@ -99,7 +98,8 @@ class OffloadReport:
     measured quantities into the sub-report of the bank it ran on
     (``report.bank(b)``; only ``dram``/``rowclones``/``staged_bytes``);
     :meth:`merged` folds them back into one array-level view.  The
-    rank-level timing fields stay 0 until ``schedule_timing`` is ported.
+    rank-level timing fields are stamped by
+    :meth:`PudEngine.schedule_timing`.
     """
 
     ops: int = 0
@@ -239,17 +239,18 @@ class PudEngine:
         #: dealt across (round-robin); other backends have no banks
         self.banks = banks
         #: static plan-verification tri-state for the resident plans the
-        #: dram backend schedules: ``None`` / ``False`` plan without
-        #: verifying, ``True`` raises when a plan is made (the verifier is
-        #: not ported yet)
+        #: dram backend schedules: ``True`` verifies every plan
+        #: (:func:`repro_torch.analysis.verify_plan`), ``False`` never does,
+        #: ``None`` defers to :func:`repro_torch.analysis.default_verify`
         self.verify = verify
         self._isa: PudIsa | None = None
         self._array: BankArray | None = None
         if backend == "dram":
             if fused:
                 raise NotImplementedError(
-                    "fused=True: the fused multi-bank path is not ported yet "
-                    "(the default per-bank loop gives the same result)")
+                    "fused=True: the fused multi-bank path (core/fused.py) "
+                    "is not ported yet, ROADMAP A-3 (the default per-bank "
+                    "loop gives the same result)")
             #: N per-bank chips; bank 0 IS the single-bank engine's chip
             self._array = BankArray(
                 self.module, banks=banks, seed=seed,
@@ -406,13 +407,23 @@ class PudEngine:
         return kops.ref.bitcount_planes(planes)
 
     def schedule_timing(self):
-        """Rank-legal schedule of the dram backend's command logs."""
+        """Rank-legal schedule of everything this engine has executed.
+
+        Runs the :mod:`repro_torch.analysis.schedule` event-driven scheduler
+        over the dram backend's accumulated BankArray command logs and
+        stamps the resulting makespans/stalls onto :attr:`report`.  Returns
+        the :class:`~repro_torch.analysis.ScheduledTimeline`; raises on the
+        other backends (no command logs to schedule)."""
         if self._array is None:
             raise RuntimeError("schedule_timing() needs the dram backend"
                                " (no command logs on torch/kernel)")
-        raise NotImplementedError(
-            "schedule_timing needs repro.analysis, which is not ported yet "
-            "(ROADMAP A-5)")
+        from .. import analysis
+        tl = analysis.schedule_bank_array(self._array)
+        self.report.makespan_ns = float(self._array.makespan_ns())
+        self.report.legal_makespan_ns = tl.legal_makespan_ns
+        self.report.rank_stall_ns = tl.rank_stall_ns
+        self.report.refresh_stall_ns = tl.refresh_stall_ns
+        return tl
 
     # ------------- compiled Boolean programs -------------
     def run_program(self, prog: CC.Program,

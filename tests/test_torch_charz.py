@@ -116,10 +116,12 @@ def test_fig15_and_fig7_mc_rows():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
+    """Only the fused multi-bank path (ROADMAP A-3) is still unported;
+    ``stats=`` runs (held to the reference in test_torch_analysis.py)."""
+    with pytest.raises(NotImplementedError, match="A-3"):
         TC.mc_boolean_success("and", 2, banks=2, fused=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TC.mc_not_success(1, stats={}, device="cpu")
+    with pytest.raises(NotImplementedError, match="A-3"):
+        TC.mc_not_success(1, banks=2, fused=True, device="cpu")
 
 
 def test_torch_closed_form_matches_numpy():

@@ -178,15 +178,24 @@ def test_resident_session_reuse():
     assert ti.last_resident_plan is ts.plans[-1]
 
 
-def test_verify_true_raises_and_none_plans():
+def test_verify_true_raises_and_none_plans(monkeypatch):
+    """``verify=True`` raises ``PlanVerificationError`` when the verifier
+    reports an ERROR (here injected) and plans when it reports none; every
+    tri-state value plans a clean program."""
+    from repro_torch import analysis
     prog = TC.get_program("xor")
     _ri, ti = _isas(None, "ideal")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TCC.schedule_resident(prog, ti, verify=True)
-    with pytest.raises(NotImplementedError):
-        TCC.ResidentSession(prog, ti, verify=True)
-    for v in (None, False):
+    for v in (True, None, False):
         assert TCC.schedule_resident(prog, ti, verify=v).apas == 4
+    bad = [analysis.Finding("PLAN-ROW-ALIAS", analysis.ERROR, (0,), "")]
+    monkeypatch.setattr(analysis, "verify_plan", lambda *a, **k: bad)
+    with pytest.raises(analysis.PlanVerificationError):
+        TCC.schedule_resident(prog, ti, verify=True)
+    with pytest.raises(analysis.PlanVerificationError):
+        TCC.ResidentSession(prog, ti, verify=True).run(
+            {"a": np.ones(ti.width, np.uint8),
+             "b": np.ones(ti.width, np.uint8)})
+    assert TCC.schedule_resident(prog, ti, verify=False).apas == 4
 
 
 def test_cost_model_twins_equal_reference():

@@ -173,12 +173,13 @@ def test_offload_report_meters(backend):
     assert rep == ref_eng.report.summary()
 
 
-def test_engine_config_and_defaults():
+def test_engine_config_and_defaults(monkeypatch):
+    monkeypatch.delenv("FCDRAM_VERIFY", raising=False)
     assert EngineConfig().backend == "kernel"
     eng = TEngine(EngineConfig(backend="torch", seed=4), **CPU)
     assert eng.backend == "torch" and eng.seed == 4
     assert TEngine("dram", **CPU).config.resolved_resident() == "scheduled"
-    assert EngineConfig().resolved_verify() is False
+    assert EngineConfig().resolved_verify() is True     # pytest drives this
     assert EngineConfig(verify=False).resolved_verify() is False
     assert EngineConfig(verify=True).resolved_verify() is True
     with pytest.raises(ValueError):
@@ -231,22 +232,28 @@ def test_dram_ideal_agrees_with_torch():
 @pytest.mark.parametrize("call", ["run_program", "add", "fused",
                                   "schedule_timing"])
 def test_dram_unported_paths_raise(call):
-    """What still needs ``repro.analysis`` or ``fused.py``: a resident plan
-    under ``verify=True`` (run_program and add schedule one), the fused
-    multi-bank path and the rank-legal timing."""
-    def go():
-        if call == "fused":
-            return TEngine("dram", banks=2, fused=True, **CPU)
-        eng = TEngine("dram", verify=True, **CPU)
-        if call == "run_program":
-            prog = TCC.compile_expr(TCC.Xor(TCC.Var("a"), TCC.Var("b")))
-            return eng.run_program(prog, {"a": _planes(1, 8),
-                                          "b": _planes(1, 8)})
-        if call == "add":
-            return eng.add(_planes(2, 1, 8), _planes(2, 1, 8))
-        return eng.schedule_timing()
-    with pytest.raises(NotImplementedError):
-        go()
+    """Only the fused multi-bank path (``fused.py``, ROADMAP A-3) still
+    raises.  What needed the static analysis now runs: a resident plan
+    under ``verify=True`` (run_program and add schedule one) and the
+    rank-legal timing."""
+    if call == "fused":
+        with pytest.raises(NotImplementedError, match="A-3"):
+            TEngine("dram", banks=2, fused=True, **CPU)
+        return
+    eng = TEngine("dram", verify=True, **CPU)
+    a, b = _planes(2, 1, 8), _planes(2, 1, 8)
+    if call == "run_program":
+        prog = TCC.compile_expr(TCC.Xor(TCC.Var("a"), TCC.Var("b")))
+        got = eng.run_program(prog, {"a": a[0], "b": b[0]})
+        assert _same(got["out"], a[0] ^ b[0])
+    elif call == "add":
+        assert _same(eng.add(a, b),
+                     TEngine("torch", **CPU).add(a, b))
+    else:
+        eng.add(a, b)
+        tl = eng.schedule_timing()
+        assert tl.relint() == 0 and tl.legal_makespan_ns > 0.0
+        assert eng.report.legal_makespan_ns == tl.legal_makespan_ns
 
 
 # ---------------------------------------------------------------------------
@@ -363,7 +370,11 @@ def test_no_port_module_imports_jax_or_reference():
                  "repro_torch.kernels.bitserial",
                  "repro_torch.kernels.popcount_gemm",
                  "repro_torch.models", "repro_torch.models.quant",
-                 "repro_torch.convert"):
+                 "repro_torch.convert", "repro_torch.analysis",
+                 "repro_torch.analysis.verify", "repro_torch.analysis.timing",
+                 "repro_torch.analysis.schedule",
+                 "repro_torch.core.calibrate",
+                 "repro_torch.core.reliability"):
         assert need in mods, need
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
