@@ -76,7 +76,17 @@ Phases:
     the DDR4 timing lint and the rank scheduler over ``dram`` engine logs
     (0 findings, 0 violations; the 2-bank xor case equal to the
     reference's numbers), Obs. 3's per-cell map, and ``draws="numpy"``
-    card == CPU for the sweep, ``stats`` and ``apa_then_write``.
+    card == CPU for the sweep, ``stats`` and ``apa_then_write``;
+13. the fused multi-bank path (``fused_path``, after the
+    characterization): BENCH_pr10.json's ``fused_detail`` points (and16 /
+    not4 / xor on 4 and 16 banks, 192 trials, 48 groups, numpy draws),
+    ``fused=True`` and ``False`` each equal to the committed loop result,
+    the 4-bank points on the CPU too; nand16 and not1 at 10,000 trials x
+    8192 bits on 16 banks (device draws), fused equal to the loop, their
+    walls, senseamp launches and peak memory; a 4-bank noisy ``dram``
+    engine, fused equal to the loop (and numpy draws card == CPU); the
+    reference's 2-bank host-staged lint case equal to BENCH_pr10's
+    ``static_detail`` fused numbers.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -142,6 +152,15 @@ REF_STATIC_LOOP = {"timing_violations": 0, "timing_by_design": 28,
                    "makespan_ns": 1554.5, "min_legal_makespan_ns": 1554.5,
                    "legal_makespan_ns": 1554.5, "refresh_stall_ns": 0.0,
                    "rank_stall_ns": 0.0, "sched_violations": 0}
+#: the same for the 2-bank host-staged engine run with fused=True
+#: (BENCH_pr10.json "static_detail", the "_fused" keys)
+REF_STATIC_FUSED = {"timing_violations": 0, "timing_by_design": 16,
+                    "makespan_ns": 980.0, "min_legal_makespan_ns": 980.0,
+                    "legal_makespan_ns": 980.0, "refresh_stall_ns": 0.0,
+                    "rank_stall_ns": 0.0, "sched_violations": 0}
+#: the fused multi-bank cells: 16 banks, 48 stratified groups (divisible by
+#: 4 and 16, as in the reference's fused benchmark)
+FUSED_BANKS, FUSED_GROUPS = 16, 48
 #: the workload fan-in sweep (tests/test_workloads.py's contract: MC
 #: success within 0.05 below the independent-op estimate, the bloom probe
 #: no worse than 0.02 below its narrow self at fan-in 16)
@@ -258,6 +277,9 @@ def check_senseamp(S) -> dict:
     # bytes the function must move: each activated cell, the normal, the
     # uniform and the static offsets read once, each output bit written once
     nbytes = tg * w * (4 * (len(rows_l) + len(rows_f)) + 4 + 4 + 1) + 4 * w
+    del cases, args, kw, cells
+    fused = _check_senseamp_fused(S, rows_l, rows_f, scal, gen)
+    worst = max(worst, fused.pop("max_abs_err"))
     return {"name": "senseamp_resolve", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/senseamp.cu",
             "replaces": "src/repro/kernels/senseamp.py:77",
@@ -265,7 +287,46 @@ def check_senseamp(S) -> dict:
             "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
             "bound_ms": round(nbytes / HBM_BYTES_PER_S * 1e3, 6),
             "bound_by": "bytes", "library_ms": None,
-            "shape": {"T": tg, "W": w, "n_com": n, "n_ref": n}}
+            "shape": {"T": tg, "W": w, "n_com": n, "n_ref": n},
+            "fused_shape": fused}
+
+
+def _check_senseamp_fused(S, rows_l, rows_f, scal, gen) -> dict:
+    """The fused episode's shape: 16 banks x 209 trials stacked on the
+    trial axis, per-bank (N, W) static plane and (N,) thresholds; kernel ==
+    plain bit for bit, an (N, W) plane == its (T, W) expansion, then times
+    beside the bound (the per-bank planes counted once)."""
+    dev = torch.device("cuda")
+    nb, tb = FUSED_BANKS, -(-TRIALS // FUSED_GROUPS)
+    t, w, slots = nb * tb, ROW_BITS // 2, 16
+    cells = [torch.randint(0, 3, (t, slots, ROW_BITS), generator=gen,
+                           device=dev).float() * 0.5 for _ in range(2)]
+    args = (cells[1], rows_l, w, cells[0], rows_f, 0)
+    static = 0.02 * torch.randn((nb, w), generator=gen, device=dev)
+    thr = 0.0123 + 0.005 * torch.randn((nb,), generator=gen, device=dev)
+    kw = dict(scal, static=static, thr=thr, bank_trials=tb,
+              normals=torch.randn((t, w), generator=gen, device=dev),
+              u0=torch.rand((t, w), generator=gen, device=dev))
+    worst = 0
+    got = S.senseamp_gather_cuda(*args, **kw)
+    want = S.senseamp_gather_plain(*args, **kw)
+    worst = max(worst, int((got.int() - want.int()).abs().max()))
+    assert worst == 0, "senseamp kernel != plain (per-bank planes)"
+    expanded = dict(kw, static=static.repeat_interleave(tb, dim=0),
+                    thr=scal["thr"], bank_trials=None)
+    assert torch.equal(S.senseamp_gather_cuda(*args, **dict(kw, thr=scal[
+        "thr"])), S.senseamp_gather_cuda(*args, **expanded)), \
+        "senseamp: (N, W) static plane != its (T, W) expansion"
+    del expanded
+    ms = _time_ms(lambda: S.senseamp_gather_cuda(*args, **kw))
+    plain_ms = _time_ms(lambda: S.senseamp_gather_plain(*args, **kw), reps=5)
+    nbytes = t * w * (4 * (len(rows_l) + len(rows_f)) + 4 + 4 + 1) \
+        + 4 * nb * w + 4 * nb
+    return {"T": t, "W": w, "banks": nb, "n_com": len(rows_l),
+            "n_ref": len(rows_f), "ms": round(ms, 6),
+            "plain_ms": round(plain_ms, 6),
+            "bound_ms": round(nbytes / HBM_BYTES_PER_S * 1e3, 6),
+            "bound_by": "bytes", "max_abs_err": float(worst)}
 
 
 def _bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -944,7 +1005,8 @@ def characterization_path(counts: Counts) -> dict:
           flush=True)
     assert abs(rate - PAPER_16["nand"]) < 0.04, rate
     assert stats["legal_makespan_ns"] >= stats["makespan_ns"] > 0.0, stats
-    assert S.launches - n0 == charz.MC_PAIR_GROUPS
+    # 9 groups on 4 banks auto-fuse: two full rounds and a 1-bank tail
+    assert S.launches - n0 == -(-charz.MC_PAIR_GROUPS // 4), S.launches - n0
     out["nand16_banks4"], out["stats"] = rate, stats
     t0, n0 = step("stats", t0, n0), S.launches
     # static analysis: the verifier over the zoo's plans on a card bank
@@ -1046,6 +1108,144 @@ def characterization_path(counts: Counts) -> dict:
     assert c["senseamp_resolve"] > 0 and \
         sum(c.values()) == c["senseamp_resolve"], c
     print("[charz] steps " + json.dumps(out["steps"]), flush=True)
+    return out
+
+
+def fused_path(counts: Counts) -> dict:
+    """The fused multi-bank path on the card (see the module doc, 13)."""
+    import statistics
+    from repro_torch import analysis
+    from repro_torch.core import charz
+    from repro_torch.core.policy import ResidentPolicy
+    from repro_torch.kernels.ops import unpack_bits
+    from repro_torch.pud.engine import PudEngine
+    S = counts.S
+    out: dict = {}
+    detail = json.loads((ROOT / "BENCH_pr10.json").read_text())[
+        "fused_detail"]
+    points = {
+        "and16": lambda **kw: charz.mc_boolean_success("and", 16, **kw),
+        "not4": lambda **kw: charz.mc_not_success(4, **kw),
+        "xor": lambda **kw: charz.mc_program_success("xor", **kw)}
+    counts.reset()
+    # (a) numpy draws: the reference's committed fused_detail points
+    bench = {}
+    for banks in (4, 16):
+        for name, fn in points.items():
+            want = detail[f"{name}_b{banks}"]
+            kw = dict(trials=want["trials"], groups=want["groups"],
+                      banks=banks, draws="numpy")
+            got = {f"{dev}_{'fused' if f else 'loop'}": fn(
+                fused=f, device=dev, **kw) for f in (True, False)
+                for dev in (("cuda", "cpu") if banks == 4 else ("cuda",))}
+            assert all(v == want["loop_success"] for v in got.values()), \
+                (name, banks, got, want["loop_success"])
+            bench[f"{name}_b{banks}"] = got
+    print("[fused] BENCH_pr10 fused_detail points, draws=numpy, fused and "
+          "loop (card; 4 banks also CPU) == loop_success: " + json.dumps(
+              {k: v["cuda_fused"] for k, v in bench.items()}), flush=True)
+    out["bench_points"] = bench
+    # (b) device draws at full width on 16 banks: fused == loop
+    mc = {
+        "nand16": lambda f: charz.mc_boolean_success(
+            "nand", 16, trials=TRIALS, row_bits=ROW_BITS, banks=FUSED_BANKS,
+            groups=FUSED_GROUPS, fused=f, device="cuda"),
+        "not1": lambda f: charz.mc_not_success(
+            1, trials=TRIALS, row_bits=ROW_BITS, banks=FUSED_BANKS,
+            groups=FUSED_GROUPS, fused=f, device="cuda")}
+    cells: dict = {}
+    for name, fn in mc.items():
+        walls = {False: [], True: []}
+        for order in ((False, True), (True, False), (False, True)):
+            for f in order:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                n0, t0 = S.launches, time.perf_counter()
+                r = fn(f)
+                torch.cuda.synchronize()
+                walls[f].append((time.perf_counter() - t0) * 1e3)
+                tag = f"{name}_{'fused' if f else 'loop'}"
+                c = cells.setdefault(tag, {"rate": r})
+                assert c["rate"] == r, (tag, c["rate"], r)
+                c["launches"] = S.launches - n0
+                c["peak_bytes"] = torch.cuda.max_memory_allocated()
+        for f in (False, True):
+            c = cells[f"{name}_{'fused' if f else 'loop'}"]
+            c["wall_ms"] = walls[f]
+            c["wall_ms_median"] = statistics.median(walls[f])
+        assert cells[f"{name}_fused"]["rate"] == cells[f"{name}_loop"]["rate"]
+    assert abs(cells["nand16_fused"]["rate"] - PAPER_16["nand"]) < 0.04
+    assert cells["nand16_loop"]["launches"] == FUSED_GROUPS
+    assert cells["nand16_fused"]["launches"] == FUSED_GROUPS // FUSED_BANKS
+    assert cells["not1_fused"]["launches"] == 0
+    for tag, c in cells.items():
+        print(f"[fused] {tag}: rate {c['rate']} wall median "
+              f"{c['wall_ms_median']} ms of {c['wall_ms']}, senseamp "
+              f"launches {c['launches']}, peak {c['peak_bytes']} B",
+              flush=True)
+    out["mc"] = cells
+    # (c) a 4-bank noisy dram engine over 300 row chunks: 9 full blocks of
+    # 32 (fused rounds of 4, 4 and a 1-bank tail) and a ragged 12-chunk
+    # block on the loop; nand then NOT, twice (cursors across the tail)
+    words = np.random.default_rng(11).integers(0, 2 ** 32, (2, 150, 256),
+                                               dtype=np.uint32)
+    eng_out = {}
+    for draws, runs in (("device", (("cuda", False), ("cuda", True))),
+                        ("numpy", (("cuda", True), ("cpu", True),
+                                   ("cpu", False)))):
+        res = []
+        for dev, f in runs:
+            eng = PudEngine("dram", banks=4, noisy=True, seed=3, fused=f,
+                            draws=draws, device=dev)
+            n0 = S.launches
+            got = [eng.nary(words, "nand"), eng.not_(words[0]),
+                   eng.nary(words, "nand"), eng.not_(words[1])]
+            if dev == "cuda":
+                assert S.launches - n0 == (8 if f else 20), S.launches - n0
+            res.append((f, [g.cpu() for g in got], eng.report.summary()))
+        for f, g, rep in res[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(g, res[0][1])), \
+                f"dram engine fused != loop / card != CPU ({draws})"
+            # the same path books the same floats; fused and loop sum the
+            # same per-block costs in another order
+            for k, v in rep.items():
+                assert (v == res[0][2][k] if f == res[0][0] else
+                        abs(v - res[0][2][k]) <= 1e-9 * abs(v)), (draws, k)
+        want = ~(words[0] & words[1])
+        eng_out[draws] = float(unpack_bits(torch.from_numpy(
+            want.view(np.int32)) ^ res[0][1][0]).float().mean())
+    print(f"[fused] dram engine 4 banks, nand + not twice: fused == loop "
+          f"(device draws), card == CPU == loop (numpy draws); nand "
+          f"mismatch fraction {eng_out}", flush=True)
+    out["engine_mismatch"] = eng_out
+    # (d) the reference's 2-bank fused lint case: xor, host-staged, (4, 4)
+    # words drawn after the loop case's from default_rng(7)
+    rng = np.random.default_rng(7)
+    for _ in ("a", "b"):
+        rng.integers(0, 2 ** 32, (4, 4), dtype=np.uint32)
+    eng = PudEngine("dram", banks=2, fused=True, resident=ResidentPolicy.HOST,
+                    verify=False, device="cuda")
+    eng.run_program(charz.get_program("xor"), {
+        k: rng.integers(0, 2 ** 32, (4, 4), dtype=np.uint32)
+        for k in ("a", "b")})
+    rep = analysis.lint_bank_array(eng._array)
+    tl = eng.schedule_timing()
+    static = {"timing_violations": rep.violations,
+              "timing_by_design": sum(sum(r.by_design.values())
+                                      for r in rep.per_bank),
+              "makespan_ns": rep.makespan_ns,
+              "min_legal_makespan_ns": rep.min_legal_makespan_ns,
+              "legal_makespan_ns": tl.legal_makespan_ns,
+              "refresh_stall_ns": tl.refresh_stall_ns,
+              "rank_stall_ns": tl.rank_stall_ns,
+              "sched_violations": tl.relint_violations}
+    print("[fused] static (2-bank host-staged xor) " + json.dumps(static),
+          flush=True)
+    assert static == REF_STATIC_FUSED, static
+    out["static"] = static
+    c = counts.read("fused")
+    assert c["senseamp_resolve"] > 0 and \
+        sum(c.values()) == c["senseamp_resolve"], c
     return out
 
 
@@ -1646,6 +1846,8 @@ def main() -> int:
     t0 = _phase("program_path", t0, times)
     charz_out = characterization_path(counts)
     t0 = _phase("characterization_path", t0, times)
+    fused_out = fused_path(counts)
+    t0 = _phase("fused_path", t0, times)
 
     # ---- the decoder LM behind the serving engine ----
     serve_out, params = serve_path(counts, card)
@@ -1664,6 +1866,7 @@ def main() -> int:
                                  if c[r["name"]]}
         assert r["launches"] > 0, r["name"]
     print("[dram] " + json.dumps(dram_out), flush=True)
+    print("[fused_path] " + json.dumps(fused_out["mc"]), flush=True)
     print("[characterization] " + json.dumps(
         {k: charz_out[k] for k in ("stats", "static", "obs3", "plans")}),
         flush=True)

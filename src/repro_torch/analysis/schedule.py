@@ -330,7 +330,8 @@ def schedule_bank_array(array, *, timings: DRAMTimings | None = None
     """Legal rank schedule of every command log a BankArray has built.
 
     Mirrors the lint's :func:`~repro_torch.analysis.timing._bank_streams`
-    serialization: one bank's sims concatenate in construction order."""
+    serialization: one bank's sims concatenate in construction order; a
+    fused sim's bank-stacked log is replicated onto each member bank."""
     t = timings or timings_for(array.module)
     per_bank: dict[int, list[CommandBlock]] = {
         b: [] for b in range(array.banks)}

@@ -289,15 +289,19 @@ class ArrayTimingReport:
 
 def bank_logs(array) -> list[tuple[int, object]]:
     """``(bank, CommandLog)`` of every sim an array has built, in
-    construction order (a bank's sims run serially in that order)."""
-    return [(b, isa.sim.log) for (b, *_), isa in array._isas.items()]
+    construction order (a bank's sims run serially in that order); a fused
+    sim's bank-stacked log runs on each of its member banks, after that
+    bank's own sims."""
+    return [(b, isa.sim.log) for (b, *_), isa in array._isas.items()] + [
+        (b, fisa.sim.log) for (k, *_), fisa in array._fused.items()
+        for b in range(k)]
 
 
 def _bank_streams(array) -> dict[int, list[Primitive]]:
     """Per-bank primitive timelines of every sim an array has built.
 
     Mirrors ``BankArray.bank_time_ns``: one bank's sims concatenate
-    serially."""
+    serially; a fused sim's stream is replicated onto each member bank."""
     t = timings_for(array.module)
     streams: dict[int, list[Primitive]] = {b: [] for b in range(array.banks)}
     cursor = dict.fromkeys(streams, 0.0)

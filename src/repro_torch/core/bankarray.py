@@ -18,10 +18,15 @@ other bank replays the frozen decisions (:meth:`schedule_decisions`,
 round-trips the source bank's planes through the host (DDR4 has no
 bank-to-bank path), charged to the destination bank's log.
 
+:meth:`fused_isa` stacks banks onto the trial axis: one
+:class:`~repro_torch.core.fused.FusedPudIsa` episode runs the same command
+stream on several banks at once, bit-identical per bank to the per-bank
+loop (:mod:`repro_torch.core.fused`); its command log accrues to each of
+its banks.
+
 :meth:`makespan_ns` is optimistic (every bank issues from t=0 with a
 private command bus); :meth:`legal_makespan_ns` is the rank-legal
-counterpart from :mod:`repro_torch.analysis.schedule`.  Not ported yet:
-the fused bank-stacked ISA (``fused_isa``, ROADMAP A-3).
+counterpart from :mod:`repro_torch.analysis.schedule`.
 """
 from __future__ import annotations
 
@@ -79,6 +84,9 @@ class BankArray:
         self._noise_seqs = [np.random.SeedSequence(s)
                             for s in self.bank_seeds]
         self._isas: dict[tuple, PudIsa] = {}
+        #: fused (bank-stacked) ISAs, keyed (n_banks, trials, overrides):
+        #: one fused sim's log accounts to all of its banks
+        self._fused: dict[tuple, "FusedPudIsa"] = {}
 
     # ------------- device addressing -------------
     def __len__(self) -> int:
@@ -98,6 +106,30 @@ class BankArray:
                           trials=t, **{**self._sim_kwargs, **overrides})
             self._isas[key] = PudIsa(sim, bank=bank)
         return self._isas[key]
+
+    def fused_isa(self, n_banks: int | None = None,
+                  trials: int | None = ..., **overrides):
+        """One bank-stacked :class:`~repro_torch.core.fused.FusedPudIsa`
+        over the first ``n_banks`` banks (default: all) at ``trials`` per
+        bank: one ``(n_banks * trials, slots, bits)`` episode, bit-identical
+        per bank to the loop path.  Cached per ``(n_banks, trials,
+        overrides)`` like :meth:`isa`; ``track_unshared`` is forced off."""
+        from .fused import FusedBankSim, FusedPudIsa
+        k = self.banks if n_banks is None else int(n_banks)
+        if not 1 <= k <= self.banks:
+            raise ValueError(f"n_banks must be in 1..{self.banks}, got {k}")
+        t = self.trials if trials is ... else trials
+        if t is None or int(t) < 1:
+            raise ValueError("fused execution is trial-batched: trials "
+                             f"must be >= 1 per bank, got {t}")
+        key = (k, t, tuple(sorted(overrides.items())))
+        if key not in self._fused:
+            kw = {**self._sim_kwargs, **overrides}
+            kw.pop("track_unshared", None)
+            sim = FusedBankSim(self.module, bank_seeds=self.bank_seeds[:k],
+                               trials=int(t), **kw)
+            self._fused[key] = FusedPudIsa(sim)
+        return self._fused[key]
 
     def __getitem__(self, bank: int) -> PudIsa:
         return self.isa(bank)
@@ -127,10 +159,15 @@ class BankArray:
 
     # ------------- modeled concurrent-bank time -------------
     def bank_time_ns(self) -> list[float]:
-        """Per-bank simulated command time (sum over that bank's sims)."""
+        """Per-bank simulated command time (sum over that bank's sims); a
+        fused sim's log time accrues to each of its banks ``0..k-1``."""
         out = [0.0] * self.banks
         for (b, *_), isa in self._isas.items():
             out[b] += isa.sim.log.time_ns
+        for (k, *_), fisa in self._fused.items():
+            t = fisa.sim.log.time_ns
+            for b in range(k):
+                out[b] += t
         return out
 
     def makespan_ns(self) -> float:

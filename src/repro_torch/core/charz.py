@@ -28,10 +28,12 @@ The other figure drivers (Figs. 5, 8-12, 16-21 and the abstract's
 takeaways) are the calibrated closed form, as in the reference; Obs. 3
 (:func:`observation3_perfect_cells`) is a per-cell MC map.
 
-Every Monte-Carlo entry point takes ``device=`` (default ``"cuda"``).  Not
-ported yet: the fused multi-bank path (``fused=True`` raises, ROADMAP A-3;
-with ``banks > 1`` the default runs the per-bank loop, which the
-reference's fused path matches bit for bit).
+Every Monte-Carlo entry point takes ``device=`` (default ``"cuda"``).
+``fused`` is the reference's tri-state: with ``banks > 1`` each round of
+``banks`` groups runs as one bank-stacked episode
+(:mod:`repro_torch.core.fused`, one senseamp launch per Boolean APA for all
+banks), bit-identical per bank to the per-bank loop; ``None`` fuses where
+that is parity-safe (:func:`_use_fused`), ``False`` keeps the loop.
 """
 from __future__ import annotations
 
@@ -45,7 +47,8 @@ from . import compiler as CC
 from .analog import CLOSE, FAR, MIDDLE
 from .bankarray import BankArray
 from . import decoder as DEC
-from .device import MODULE_ZOO, get_module
+from .device import MODULE_ZOO, ActivationSupport, get_module
+from .fused import FusedGeometryError
 from .isa import CapabilityError, PudIsa
 from .policy import ResidentPolicy, coerce_resident
 from .simulator import DRAWS, BankSim, resolve_device, torch_seed
@@ -77,12 +80,53 @@ def _check_banks(banks, *, batched: bool) -> int:
     return banks
 
 
-def _check_fused(fused) -> None:
-    if fused:
-        raise NotImplementedError(
-            "fused=True: the fused multi-bank path (core/fused.py) is not "
-            "ported yet, ROADMAP A-3 (the default per-bank loop gives the "
-            "same result)")
+def _use_fused(fused: bool | None, module, banks: int,
+               dealer: str = "round_robin", *,
+               resident: bool = False) -> bool:
+    """Settle the ``fused`` tri-state of an MC sweep: ``None`` fuses exactly
+    when ``banks > 1``, the dealer is round-robin (the fused group -> bank
+    layout is bank-major round-robin), the module activates rows
+    simultaneously (sequential modules retry decoder misses per bank) and
+    execution is host-staged (resident row plans are seed-dependent per
+    bank); ``True`` forces fusion, raising :class:`FusedGeometryError` when
+    one of those rules it out; ``False`` keeps the loop."""
+    reasons = []
+    if dealer != "round_robin":
+        reasons.append("occupancy dealing breaks the bank-major group "
+                       "layout fusion requires")
+    if module.activation is not ActivationSupport.SIMULTANEOUS:
+        reasons.append(f"{module.name} activates sequentially (per-bank "
+                       "decoder-miss retries diverge)")
+    if resident:
+        reasons.append("resident execution chains seed-dependent per-bank "
+                       "row plans")
+    if fused is None:
+        return banks > 1 and not reasons
+    if fused and reasons:
+        raise FusedGeometryError(
+            "fused=True but fusion cannot apply: " + "; ".join(reasons))
+    return bool(fused)
+
+
+def _fused_mc_rounds(arr: BankArray, groups: int, run_round) -> None:
+    """Drive one fused MC sweep as ``ceil(groups / banks)`` rounds: round r
+    runs the round-robin layout's groups ``r*banks .. r*banks+banks-1``, one
+    per bank, as one episode on ``arr.fused_isa()``.  A tail round
+    (``groups % banks != 0``) runs on a bank-subset fused ISA that continues
+    the first banks' noise counters and pair cursors and hands them back
+    afterwards, so per bank the streams are the loop path's.
+    ``run_round(fisa, r)`` performs round r's draws, ops and scoring."""
+    full, tail = divmod(groups, arr.banks)
+    fisa = arr.fused_isa() if full else None
+    for r in range(full):
+        run_round(fisa, r)
+    if tail:
+        ft = arr.fused_isa(n_banks=tail)
+        if fisa is not None:
+            ft.adopt_state(fisa)
+        run_round(ft, full)
+        if fisa is not None:
+            fisa.absorb_state(ft)
 
 
 def _fill_stats(stats: dict | None, arr: BankArray, groups: int,
@@ -252,7 +296,6 @@ def mc_boolean_success(op: str, n: int, *, trials: int = 200,
     chips (``dealer``: round-robin by default).  ``stats``, if a dict,
     receives the modeled concurrent-bank timing (:func:`_fill_stats`).
     """
-    _check_fused(fused)
     banks = _check_banks(banks, batched=batched)
     dev = resolve_device(device)
     draw = _Operands(seed, draws, dev)
@@ -275,6 +318,24 @@ def mc_boolean_success(op: str, n: int, *, trials: int = 200,
                     trials=tg, track_unshared=False, draws=draws, device=dev)
     ok = 0
     tot = 0
+    if _use_fused(fused, arr.module, banks, dealer):
+        pairs_by_bank = [_stratified_pairs(arr.isa(b), n, n, groups,
+                                           seed=seed)
+                         for b in range(min(banks, groups))]
+
+        def run_round(fisa, r):
+            nonlocal ok, tot
+            # draw per group in round-robin order, stacked bank-major
+            ops = torch.cat([draw.bits((tg, n, fisa.width))
+                             for _b in range(fisa.n_banks)])
+            pairs = [pairs_by_bank[b][r] for b in range(fisa.n_banks)]
+            got = fisa.nary_op(op, ops.swapaxes(0, 1), pair=pairs)
+            ok += _hits(got, _want_nary(op, ops, dim=1))
+            tot += got.numel()
+
+        _fused_mc_rounds(arr, groups, run_round)
+        _fill_stats(stats, arr, groups, tg)
+        return ok / tot
     for isa, pair in _bank_pair_schedule(
             arr, groups, lambda isa: _stratified_pairs(isa, n, n, groups,
                                                        seed=seed),
@@ -298,7 +359,6 @@ def mc_not_success(n_dst: int = 1, *, trials: int = 200, row_bits: int = 2048,
                    stats: dict | None = None, draws: str = "device",
                    device: str | torch.device = "cuda") -> float:
     """NOT-protocol MC success; knobs as :func:`mc_boolean_success`."""
-    _check_fused(fused)
     banks = _check_banks(banks, batched=batched)
     dev = resolve_device(device)
     draw = _Operands(seed, draws, dev)
@@ -320,6 +380,24 @@ def mc_not_success(n_dst: int = 1, *, trials: int = 200, row_bits: int = 2048,
                     track_unshared=False, draws=draws, device=dev)
     ok = 0
     tot = 0
+    if _use_fused(fused, arr.module, banks, dealer):
+        pairs_by_bank = [
+            _stratified_pairs(arr.isa(b), arr.isa(b).not_activation(n_dst),
+                              n_dst, groups, seed=seed)
+            for b in range(min(banks, groups))]
+
+        def run_round(fisa, r):
+            nonlocal ok, tot
+            bits = torch.cat([draw.bits((tg, fisa.width))
+                              for _b in range(fisa.n_banks)])
+            pairs = [pairs_by_bank[b][r] for b in range(fisa.n_banks)]
+            got = fisa.op_not(bits, n_dst=n_dst, pair=pairs)
+            ok += _hits(got, 1 - bits)
+            tot += got.numel()
+
+        _fused_mc_rounds(arr, groups, run_round)
+        _fill_stats(stats, arr, groups, tg)
+        return ok / tot
     for isa, pair in _bank_pair_schedule(
             arr, groups,
             lambda isa: _stratified_pairs(isa, isa.not_activation(n_dst),
@@ -473,7 +551,6 @@ def mc_program_success(program: str | CC.Program, *, trials: int = 200,
     scheduler decisions.  ``stats``, if a dict, receives the modeled
     concurrent-bank timing.
     """
-    _check_fused(fused)
     prog = get_program(program) if isinstance(program, str) else program
     pol = coerce_resident(resident, where="charz.mc_program_success")
     names = sorted({i.name for i in prog.instrs if i.op == "input"})
@@ -498,6 +575,22 @@ def mc_program_success(program: str | CC.Program, *, trials: int = 200,
                         row_bits=row_bits, seed=seed, temp_c=temp_c,
                         error_model="analog", trials=tg,
                         track_unshared=False, draws=draws, device=dev)
+        if _use_fused(fused, arr.module, banks, dealer,
+                      resident=pol.is_resident):
+
+            def run_round(fisa, r):
+                k = fisa.n_banks
+                per_bank = [{m: draw.bits((tg, fisa.width)) for m in names}
+                            for _b in range(k)]
+                ins = {m: torch.cat([d[m] for d in per_bank])
+                       for m in names}
+                got = CC.run_sim(prog, ins, fisa, trials=k * tg,
+                                 resident=pol)
+                score(got, ins, fisa.width)
+
+            _fused_mc_rounds(arr, groups, run_round)
+            _fill_stats(stats, arr, groups, tg)
+            return ok / tot
         decisions = None
         for bank_g in _deal_groups(arr, groups, dealer):
             isa = arr.isa(bank_g)

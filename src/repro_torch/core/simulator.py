@@ -440,6 +440,10 @@ class BankSim:
         """Same-subarray RowClone (sequential ACT -> PRE -> ACT); under the
         analog model each destination cell flips with ``rowclone_fail_p``."""
         isrc, idst = (int(i) for i in self._map_rows(sub, [src, dst]))
+        self._clone_slots(sub, isrc, idst)
+
+    def _clone_slots(self, sub: int, isrc: int, idst: int) -> None:
+        """RowClone between two slots (the body of :meth:`rowclone`)."""
         arr = self._cells(sub)
         restored = (arr[:, isrc] > 0.5).to(torch.float32)
         copied = restored

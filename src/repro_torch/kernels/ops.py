@@ -42,16 +42,20 @@ def _route(x: torch.Tensor, cuda, plain):
 
 def senseamp_gather(com, com_rows, com_off, ref, ref_rows, ref_off, *,
                     width, u_com, u_ref, static=None, normals=None, sigma=0.0,
-                    u0=None, u1=None, pf=0.0, thr=0.0) -> torch.Tensor:
+                    u0=None, u1=None, pf=0.0, thr=0.0,
+                    bank_trials=None) -> torch.Tensor:
     """Sense-amp resolve of the rows ``com_rows`` / ``ref_rows`` (slot
     indices) of two ``(T, slots, row_bits)`` cell buffers, columns
-    ``off .. off+width``; -> (T, width) uint8.  See
-    :mod:`repro_torch.kernels.senseamp` for the arithmetic."""
+    ``off .. off+width``; -> (T, width) uint8.  With ``bank_trials`` the
+    trial axis holds banks of that many trials, and ``static`` / ``thr``
+    may be given per bank.  See :mod:`repro_torch.kernels.senseamp` for the
+    arithmetic."""
     fn = _route(com, _senseamp.senseamp_gather_cuda,
                 _senseamp.senseamp_gather_plain)
     return fn(com, com_rows, com_off, ref, ref_rows, ref_off, width=width,
               u_com=u_com, u_ref=u_ref, static=static, normals=normals,
-              sigma=sigma, u0=u0, u1=u1, pf=pf, thr=thr)
+              sigma=sigma, u0=u0, u1=u1, pf=pf, thr=thr,
+              bank_trials=bank_trials)
 
 
 def senseamp_resolve_trials(com_cells, ref_cells, static, normals, uniforms,

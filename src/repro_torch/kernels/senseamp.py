@@ -25,6 +25,13 @@ two uniforms ``u0 < pf ? u1 < 0.5 : out``.  Python scalars enter rounded to
 the working dtype, where numpy 2's weak-scalar rule casts them.  Working
 dtype: that of ``normals`` (float64 for the simulator's scalar mode on the
 CPU), else float32.
+
+Per-bank planes (the fused multi-bank episode, ``repro_torch.core.fused``):
+with ``bank_trials = T_b`` the trial axis holds ``N = T / T_b`` banks of
+``T_b`` trials each, bank-major; ``static`` may then be an ``(N, W)`` plane
+and ``thr`` an ``(N,)`` float32 tensor, both read at bank ``t // T_b``.  Each
+bank's trials are decided exactly as that bank's own ``(T_b, W)`` call with
+``static[b]`` and ``thr[b]`` decides them.
 """
 from __future__ import annotations
 
@@ -51,8 +58,9 @@ def round_to(x: float, dtype: torch.dtype) -> float:
 
 
 def _check(com, com_rows, com_off, ref, ref_rows, ref_off, width, static,
-           normals, u0, u1) -> tuple[int, int]:
-    """Validate shapes; -> (T, W)."""
+           normals, u0, u1, thr=0.0,
+           bank_trials=None) -> tuple[int, int, int]:
+    """Validate shapes; -> (T, W, N banks)."""
     if com.dim() != 3 or ref.dim() != 3 or com.shape[0] != ref.shape[0]:
         raise ValueError(f"cell buffers must be (T, slots, row_bits) with "
                          f"one T, got {tuple(com.shape)}, {tuple(ref.shape)}")
@@ -66,26 +74,40 @@ def _check(com, com_rows, com_off, ref, ref_rows, ref_off, width, static,
         if off < 0 or off + w > buf.shape[2]:
             raise IndexError(f"{name}: columns {off}..{off + w} outside a "
                              f"{buf.shape[2]}-bit row")
-    if static is not None and tuple(static.shape) not in ((w,), (t, w)):
-        raise ValueError(f"static must be ({w},) or ({t}, {w}), got "
-                         f"{tuple(static.shape)}")
+    tb = t if bank_trials is None else int(bank_trials)
+    if tb < 1 or t % tb:
+        raise ValueError(f"bank_trials={bank_trials} does not divide the "
+                         f"{t} trials into banks")
+    nb = t // tb
+    if static is not None and tuple(static.shape) not in ((w,), (t, w),
+                                                          (nb, w)):
+        raise ValueError(f"static must be ({w},), ({t}, {w}) or ({nb}, {w}), "
+                         f"got {tuple(static.shape)}")
+    if torch.is_tensor(thr) and tuple(thr.shape) != (nb,):
+        raise ValueError(f"thr must be a scalar or one per bank ({nb},), got "
+                         f"{tuple(thr.shape)}")
     for name, x in (("normals", normals), ("u0", u0), ("u1", u1)):
         if x is not None and tuple(x.shape) != (t, w):
             raise ValueError(f"{name} must be ({t}, {w}), got "
                              f"{tuple(x.shape)}")
     if u1 is not None and u0 is None:
         raise ValueError("u1 (coin plane) needs u0 (flip plane)")
-    return t, w
+    return t, w, nb
+
+
+def _per_bank(x: torch.Tensor, nb: int) -> torch.Tensor:
+    """A (T, W) plane as its (N, T_b, W) bank view."""
+    return x.view(nb, -1, x.shape[-1])
 
 
 def senseamp_gather_plain(com, com_rows, com_off, ref, ref_rows, ref_off, *,
                           width, u_com, u_ref, static=None, normals=None,
                           sigma=0.0, u0=None, u1=None, pf=0.0,
-                          thr=0.0) -> torch.Tensor:
+                          thr=0.0, bank_trials=None) -> torch.Tensor:
     """Plain PyTorch twin of the kernel; see the module doc.  -> (T, W)
     uint8 on the buffers' device."""
-    _check(com, com_rows, com_off, ref, ref_rows, ref_off, width, static,
-           normals, u0, u1)
+    t, _w, nb = _check(com, com_rows, com_off, ref, ref_rows, ref_off, width,
+                       static, normals, u0, u1, thr, bank_trials)
     dt = normals.dtype if normals is not None else torch.float32
 
     def charge(buf, rows, off, u):
@@ -102,9 +124,14 @@ def senseamp_gather_plain(com, com_rows, com_off, ref, ref_rows, ref_off, *,
         acc = normals * round_to(sigma, dt) + margin.to(dt)
     else:
         acc = margin.to(dt)
-    if static is not None:
+    if static is not None and static.dim() == 2 and static.shape[0] != t:
+        acc = (_per_bank(acc, nb) + static.to(dt)[:, None]).view(acc.shape)
+    elif static is not None:
         acc = acc + static.to(dt)
-    out = acc > round_to(thr, dt)
+    if torch.is_tensor(thr):
+        out = (_per_bank(acc, nb) > thr.to(dt)[:, None, None]).view(acc.shape)
+    else:
+        out = acc > round_to(thr, dt)
     if u0 is not None:
         coin = u1 < 0.5 if u1 is not None else u0 < round_to(0.5 * pf, dt)
         out = torch.where(u0 < round_to(pf, dt), coin, out)
@@ -126,6 +153,13 @@ _I64, _F32, _VP, _INT = (ctypes.c_int64, ctypes.c_float, ctypes.c_void_p,
                          ctypes.c_int)
 
 
+def _static_mode(static, t: int) -> int:
+    """The kernel's static-plane layout: 0 (W,), 1 (T, W), 2 (N, W)."""
+    if static is None or static.dim() == 1:
+        return 0
+    return 1 if static.shape[0] == t else 2
+
+
 def _lib():
     from . import build
     lib = build.load("senseamp")
@@ -134,7 +168,7 @@ def _lib():
         side = [_VP, _Rows, _INT, _I64, _I64, _I64, _F32, _F32]
         fn.argtypes = (side + side
                        + [_VP, _INT, _VP, _F32, _VP, _VP, _F32, _F32, _F32,
-                          _VP, _INT, _INT, _VP])
+                          _VP, _INT, _VP, _INT, _INT, _VP])
         fn.restype = ctypes.c_int
     return fn
 
@@ -142,17 +176,19 @@ def _lib():
 def senseamp_gather_cuda(com, com_rows, com_off, ref, ref_rows, ref_off, *,
                          width, u_com, u_ref, static=None, normals=None,
                          sigma=0.0, u0=None, u1=None, pf=0.0,
-                         thr=0.0) -> torch.Tensor:
+                         thr=0.0, bank_trials=None) -> torch.Tensor:
     """Launch the Hopper kernel on the current stream; -> (T, W) uint8.
 
     Every tensor must be float32, contiguous and on the same CUDA device
     as the cell buffers; anything else raises."""
     global launches
-    t, w = _check(com, com_rows, com_off, ref, ref_rows, ref_off, width,
-                  static, normals, u0, u1)
+    t, w, nb = _check(com, com_rows, com_off, ref, ref_rows, ref_off, width,
+                      static, normals, u0, u1, thr, bank_trials)
     dev = com.device
+    thr_bank = thr if torch.is_tensor(thr) else None
     for name, x in (("com", com), ("ref", ref), ("static", static),
-                    ("normals", normals), ("u0", u0), ("u1", u1)):
+                    ("normals", normals), ("u0", u0), ("u1", u1),
+                    ("thr", thr_bank)):
         if x is None:
             continue
         if x.device != dev or x.dtype != torch.float32 \
@@ -168,11 +204,12 @@ def senseamp_gather_cuda(com, com_rows, com_off, ref, ref_rows, ref_off, *,
                   float(np.float32(0.5 * len(rows)))]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib()(*sides, _ptr(static),
-                     int(static is not None and static.dim() == 2),
+        err = _lib()(*sides, _ptr(static), _static_mode(static, t),
                      _ptr(normals), float(sigma), _ptr(u0), _ptr(u1),
-                     float(pf), float(0.5 * pf), float(thr), _ptr(out),
-                     t, w, ctypes.c_void_p(stream))
+                     float(pf), float(0.5 * pf),
+                     0.0 if thr_bank is not None else float(thr),
+                     _ptr(thr_bank), t // nb, _ptr(out), t, w,
+                     ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"senseamp kernel launch failed: CUDA error {err}")
     launches += 1

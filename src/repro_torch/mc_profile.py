@@ -3,7 +3,9 @@
     python -m repro_torch.mc_profile [--out chiprun_out/mc_profile.json]
 
 For each cell (a Monte-Carlo call at the paper's scale: 10,000 trials on
-the native 8192-bit row) it records the wall time of one call (host clock
+the native 8192-bit row; the ``_b16`` cells deal 48 stratified groups over
+16 banks, run as the per-bank loop and as 3 fused rounds) it records the
+wall time of one call (host clock
 around work that ends in a synchronize; median of ``REPS``), then traces
 one more call with ``torch.profiler`` and reports the device time per
 kernel, the summed device time and the device's busy share: summed device
@@ -25,21 +27,25 @@ from pathlib import Path
 import torch
 
 TRIALS, ROW_BITS, REPS = 10_000, 8192, 5
+#: name -> (kind, op, n, multi-bank options)
 CELLS = {
-    "nand16": ("boolean", "nand", 16),
-    "and2": ("boolean", "and", 2),
-    "not1": ("not", None, 1),
-    "not32": ("not", None, 32),
+    "nand16": ("boolean", "nand", 16, {}),
+    "and2": ("boolean", "and", 2, {}),
+    "not1": ("not", None, 1, {}),
+    "not32": ("not", None, 32, {}),
+    "nand16_b16_loop": ("boolean", "nand", 16,
+                        dict(banks=16, groups=48, fused=False)),
+    "nand16_b16_fused": ("boolean", "nand", 16,
+                         dict(banks=16, groups=48, fused=True)),
 }
 
 
-def _call(kind, op, n):
+def _call(kind, op, n, multi):
     from .core import charz
+    kw = dict(trials=TRIALS, row_bits=ROW_BITS, device="cuda", **multi)
     if kind == "boolean":
-        return charz.mc_boolean_success(op, n, trials=TRIALS,
-                                        row_bits=ROW_BITS, device="cuda")
-    return charz.mc_not_success(n, trials=TRIALS, row_bits=ROW_BITS,
-                                device="cuda")
+        return charz.mc_boolean_success(op, n, **kw)
+    return charz.mc_not_success(n, **kw)
 
 
 def _device_us(evt) -> float:
@@ -89,8 +95,8 @@ def measure(fn, reps: int = REPS) -> dict:
             "top_kernels": top}
 
 
-def profile_cell(kind, op, n) -> dict:
-    return measure(lambda: _call(kind, op, n))
+def profile_cell(kind, op, n, multi) -> dict:
+    return measure(lambda: _call(kind, op, n, multi))
 
 
 def main(argv=None) -> int:

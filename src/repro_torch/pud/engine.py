@@ -25,9 +25,12 @@ measured from the simulator's command log.
 The ``dram`` backend is chunk-batched: a plane is unpacked on the device,
 split into row-sized chunks, and each block of chunks runs as the trial axis
 of one ``BankSim(trials=C)`` episode on bank ``j % banks`` (blocks dealt
-round-robin), with a fresh noise stream per block — the reference's
-per-bank loop.  The reference's fused multi-bank rounds are bit-identical
-to that loop, so ``fused=None`` runs the loop and ``fused=True`` raises.
+round-robin), with a fresh noise stream per block.  With ``fused`` (the
+reference's tri-state: ``None`` auto, ``True`` forced, ``False`` the loop)
+each round of ``banks`` full-size blocks instead runs as one bank-stacked
+episode (:mod:`repro_torch.core.fused`): one senseamp launch per Boolean
+APA for all banks, per-bank results and command logs bit-identical to the
+loop.
 
 Compiled programs (``run_program``, and ``add`` through the synthesized
 adder) run on the ``dram`` backend chunk-blocked through the trial-batched
@@ -51,7 +54,8 @@ import torch
 
 from ..core import compiler as CC
 from ..core.bankarray import BankArray
-from ..core.device import ENERGY_PJ, get_module
+from ..core.device import ENERGY_PJ, ActivationSupport, get_module
+from ..core.fused import FusedGeometryError
 from ..core.isa import CostModel, OpCost, PudIsa
 from ..core.policy import EngineConfig, ResidentPolicy, coerce_resident
 from ..core.simulator import BankSim, resolve_device
@@ -238,6 +242,12 @@ class PudEngine:
         #: dram backend: number of independent banks chunk blocks are
         #: dealt across (round-robin); other backends have no banks
         self.banks = banks
+        #: dram backend: fused execution tri-state — ``None`` (auto) stacks
+        #: each round of ``banks`` same-size chunk blocks into one
+        #: bank-fused episode when that is loop-parity-safe; ``False`` keeps
+        #: the per-bank loop; ``True`` forces fusion
+        #: (``FusedGeometryError`` when it cannot apply)
+        self.fused = fused
         #: static plan-verification tri-state for the resident plans the
         #: dram backend schedules: ``True`` verifies every plan
         #: (:func:`repro_torch.analysis.verify_plan`), ``False`` never does,
@@ -246,23 +256,35 @@ class PudEngine:
         self._isa: PudIsa | None = None
         self._array: BankArray | None = None
         if backend == "dram":
-            if fused:
-                raise NotImplementedError(
-                    "fused=True: the fused multi-bank path (core/fused.py) "
-                    "is not ported yet, ROADMAP A-3 (the default per-bank "
-                    "loop gives the same result)")
             #: N per-bank chips; bank 0 IS the single-bank engine's chip
             self._array = BankArray(
                 self.module, banks=banks, seed=seed,
                 error_model="analog" if noisy else "ideal", draws=draws,
                 device=self.device)
             self._isa = self._array.isa(0)
+            reasons = []
+            if banks <= 1:
+                reasons.append("banks=1 has nothing to fuse")
+            if self.module.activation is not ActivationSupport.SIMULTANEOUS:
+                reasons.append(
+                    f"{self.module.name} activates sequentially (per-bank "
+                    "decoder-miss retries diverge)")
+            if fused is None:
+                self._fuse_ok = not reasons
+            elif fused and reasons:
+                raise FusedGeometryError(
+                    "fused=True but fusion cannot apply: "
+                    + "; ".join(reasons))
+            else:
+                self._fuse_ok = bool(fused)
         elif banks != 1:
             raise ValueError(
                 f"banks={banks}: only the dram backend has banks")
         elif fused:
             raise ValueError(
                 "fused=True: only the dram backend has banks to fuse")
+        else:
+            self._fuse_ok = False
 
     def _planes(self, x) -> torch.Tensor:
         return as_planes(x, self.device)
@@ -283,6 +305,53 @@ class PudEngine:
         if recycle:
             isa.sim.recycle_rows()
         return isa
+
+    def _fused_isa_for(self, k: int, t: int, full_isa):
+        """Fused ISA for one round of ``k`` same-size chunk blocks (one per
+        bank, banks 0..k-1): reseeded with exactly the per-bank noise seeds
+        the loop path's :meth:`_isa_for` calls would spawn for those blocks,
+        rows recycled as every loop block's are.  A bank-subset tail round
+        (``k < banks``) first adopts the full-width ISA's pair cursors (the
+        caller absorbs them back afterwards)."""
+        seeds = [self._array.next_noise_seed(b) for b in range(k)]
+        fisa = self._array.fused_isa(n_banks=k, trials=t)
+        if full_isa is not None and fisa is not full_isa:
+            fisa.adopt_state(full_isa)
+        fisa.sim.reseed_noise(seeds)
+        fisa.sim.recycle_rows()
+        return fisa
+
+    def _fuse_plan(self, n_chunks: int, blk_sz: int) -> int:
+        """Number of full-size chunk blocks the fused path may stack for this
+        dispatch (0 = the per-bank loop runs everything).  Single-chunk
+        blocks and a lone full block stay on the loop, and so does a ragged
+        final block."""
+        if not self._fuse_ok or blk_sz <= 1:
+            return 0
+        full = n_chunks // blk_sz
+        return full if full > 1 else 0
+
+    def _fused_rounds(self, full: int, blk_sz: int, run) -> list:
+        """Run the first ``full`` chunk blocks as fused rounds of up to
+        ``banks`` blocks: ``run(fisa, lo, kt)`` executes chunks
+        ``lo .. lo+kt`` on the round's fused ISA and returns its
+        ``(kt, w)``-leading result(s); each round's log delta is booked to
+        every member bank.  -> one result per round, in chunk order."""
+        pieces = []
+        full_isa = None
+        for j0 in range(0, full, self.banks):
+            k = min(self.banks, full - j0)
+            fisa = self._fused_isa_for(k, blk_sz, full_isa)
+            before = self._log_snapshot(fisa.sim)
+            res = run(fisa, j0 * blk_sz, k * blk_sz)
+            for b in range(k):
+                self._account_sim_log(fisa.sim, before, bank=b)
+            pieces.append(res)
+            if k == self.banks:
+                full_isa = fisa
+            elif full_isa is not None:
+                full_isa.absorb_state(fisa)
+        return pieces
 
     # ------------- accounting -------------
     def _meter(self, op: str, n_inputs: int, n_bits: int, *,
@@ -518,6 +587,21 @@ class PudEngine:
         chain = self.policy.is_resident and self.chain_blocks
         sessions: dict[tuple[int, int], CC.ResidentSession] = {}
         shared = None       # bank-0 adjudicated decisions, non-chained
+        # chunk blocks fuse across banks only under the host-staged policy:
+        # resident row plans are seed-dependent per bank
+        full = (self._fuse_plan(n_chunks, blk_sz)
+                if self.policy is ResidentPolicy.HOST else 0)
+
+        def fused_run(fisa, lo, kt):
+            ins = {name: (ch[0] if const[name] else ch[lo:lo + kt])
+                   for name, ch in chunks.items()}
+            res = CC.run_sim(prog, ins, fisa, resident=self.policy)
+            return {k: (v.expand(kt, w) if v.dim() == 1 else v)
+                    for k, v in res.items()}
+
+        for res in self._fused_rounds(full, blk_sz, fused_run):
+            for name in pieces:
+                pieces[name].append(res[name])
 
         def bank0_fixed():
             """Frozen scheduler decisions for sibling-bank replay: taken
@@ -529,7 +613,8 @@ class PudEngine:
             return CC.shared_schedule_decisions(prog, self._array.isa(0),
                                                 pin_inputs=chain)
 
-        for j, lo in enumerate(range(0, n_chunks, blk_sz)):
+        for j, lo in enumerate(range(full * blk_sz, n_chunks, blk_sz),
+                               start=full):        # the loop's blocks
             t = min(blk_sz, n_chunks - lo)
             bank = j % self.banks
             ins = {name: (ch[0] if const[name]
@@ -593,13 +678,17 @@ class PudEngine:
 
     def _dram_blocks(self, chunks: torch.Tensor, run) -> list:
         """Run ``run(isa, block)`` over the chunk blocks of ``chunks`` (the
-        chunk axis second to last), block j on bank ``j % banks``, each
-        command-log delta booked into the report; -> result pieces, each
-        ``(C', w)``."""
+        chunk axis second to last): fused rounds first (:meth:`_fuse_plan`),
+        then block j on bank ``j % banks``, each command-log delta booked
+        into the report; -> result pieces, each ``(C', w)``."""
         n_chunks = chunks.shape[-2]
         blk_sz = self._block_size(n_chunks)
-        pieces = []
-        for j, lo in enumerate(range(0, n_chunks, blk_sz)):
+        full = self._fuse_plan(n_chunks, blk_sz)
+        pieces = self._fused_rounds(
+            full, blk_sz,
+            lambda fisa, lo, kt: run(fisa, chunks[..., lo:lo + kt, :]))
+        for j, lo in enumerate(range(full * blk_sz, n_chunks, blk_sz),
+                               start=full):
             blk = chunks[..., lo:lo + blk_sz, :]
             bank = j % self.banks
             isa = self._isa_for(blk.shape[-2], bank=bank)

@@ -512,26 +512,27 @@ def test_engine_schedule_timing_equals_reference():
         TEngine("torch", device="cpu").schedule_timing()
 
 
+@pytest.mark.parametrize("fused", [False, None])
 @pytest.mark.parametrize("call", ["nand16", "not1", "add4_scheduled",
                                   "xor_host"])
 @pytest.mark.parametrize("banks", [1, 4])
-def test_mc_stats_equal_reference(call, banks):
-    """``stats=`` after the per-bank loop: the modeled timing dict equals
-    the reference's loop path (``fused=False``) under numpy draws."""
-    kw = dict(trials=36, row_bits=512, seed=1, banks=banks)
+def test_mc_stats_equal_reference(call, banks, fused):
+    """``stats=`` after the per-bank loop (``fused=False``) or the default
+    (which fuses the 4-bank host-staged sweeps): the modeled timing dict
+    equals the reference's under the same setting, numpy draws."""
+    kw = dict(trials=36, row_bits=512, seed=1, banks=banks, fused=fused)
     got, want = {}, {}
     if call == "nand16":
         a = TC.mc_boolean_success("nand", 16, stats=got, **kw, **NP)
-        b = RC.mc_boolean_success("nand", 16, stats=want, fused=False, **kw)
+        b = RC.mc_boolean_success("nand", 16, stats=want, **kw)
     elif call == "not1":
         a = TC.mc_not_success(1, stats=got, **kw, **NP)
-        b = RC.mc_not_success(1, stats=want, fused=False, **kw)
+        b = RC.mc_not_success(1, stats=want, **kw)
     else:
         name, pol = call.split("_")
         a = TC.mc_program_success(name, resident=TP(pol), stats=got, **kw,
                                   **NP)
-        b = RC.mc_program_success(name, resident=RP(pol), stats=want,
-                                  fused=False, **kw)
+        b = RC.mc_program_success(name, resident=RP(pol), stats=want, **kw)
     assert a == b
     assert got["legal_makespan_ns"] >= got["makespan_ns"] > 0.0
     assert got == want

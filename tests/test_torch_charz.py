@@ -116,12 +116,14 @@ def test_fig15_and_fig7_mc_rows():
 
 
 def test_unported_options_raise():
-    """Only the fused multi-bank path (ROADMAP A-3) is still unported;
-    ``stats=`` runs (held to the reference in test_torch_analysis.py)."""
-    with pytest.raises(NotImplementedError, match="A-3"):
-        TC.mc_boolean_success("and", 2, banks=2, fused=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A-3"):
-        TC.mc_not_success(1, banks=2, fused=True, device="cpu")
+    """Nothing of the MC is unported any more: ``fused=True`` (the fused
+    multi-bank path) equals the reference's default, which fuses too;
+    ``stats=`` is held to the reference in test_torch_analysis.py."""
+    kw = dict(trials=18, row_bits=512, seed=2, banks=2)
+    assert TC.mc_boolean_success("and", 2, fused=True, **kw, **NP) == \
+        RC.mc_boolean_success("and", 2, **kw)
+    assert TC.mc_not_success(1, fused=True, **kw, **NP) == \
+        RC.mc_not_success(1, **kw)
 
 
 def test_torch_closed_form_matches_numpy():

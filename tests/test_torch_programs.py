@@ -341,8 +341,9 @@ def test_mc_program_success_per_trial_and_options():
     with pytest.raises(ValueError):
         TC.mc_program_success("xor", resident=TP.GREEDY, batched=False,
                               device="cpu")
-    with pytest.raises(NotImplementedError):
-        TC.mc_program_success("xor", banks=2, fused=True, device="cpu")
+    fkw = dict(trials=12, row_bits=512, seed=1, banks=2)
+    assert TC.mc_program_success("xor", fused=True, **fkw, **NP) == \
+        RC.mc_program_success("xor", **fkw)
     with pytest.raises(ValueError):
         TC.get_program("nope")
     for name in ("bloom_probe8", "bloom_insert", "dot_bitserial5", "add3"):

@@ -232,13 +232,19 @@ def test_dram_ideal_agrees_with_torch():
 @pytest.mark.parametrize("call", ["run_program", "add", "fused",
                                   "schedule_timing"])
 def test_dram_unported_paths_raise(call):
-    """Only the fused multi-bank path (``fused.py``, ROADMAP A-3) still
-    raises.  What needed the static analysis now runs: a resident plan
-    under ``verify=True`` (run_program and add schedule one) and the
-    rank-legal timing."""
+    """Nothing of the dram backend raises any more.  ``fused=True`` runs
+    the fused multi-bank rounds and equals the reference's default (which
+    fuses too); a resident plan under ``verify=True`` (run_program and add
+    schedule one) and the rank-legal timing run."""
     if call == "fused":
-        with pytest.raises(NotImplementedError, match="A-3"):
-            TEngine("dram", banks=2, fused=True, **CPU)
+        eng = TEngine("dram", banks=2, fused=True, noisy=True, seed=3,
+                      draws="numpy", **CPU)
+        ref_eng = REngine("dram", banks=2, noisy=True, seed=3)
+        p = _planes(2, 4, 256)
+        assert _same(eng.nary(p, "nand"), ref_eng.nary(p, "nand"))
+        assert _same(eng.not_(p[0]), ref_eng.not_(p[0]))
+        assert eng._array._fused and ref_eng._array._fused
+        assert eng.report.summary() == ref_eng.report.summary()
         return
     eng = TEngine("dram", verify=True, **CPU)
     a, b = _planes(2, 1, 8), _planes(2, 1, 8)
@@ -374,7 +380,7 @@ def test_no_port_module_imports_jax_or_reference():
                  "repro_torch.analysis.verify", "repro_torch.analysis.timing",
                  "repro_torch.analysis.schedule",
                  "repro_torch.core.calibrate",
-                 "repro_torch.core.reliability"):
+                 "repro_torch.core.reliability", "repro_torch.core.fused"):
         assert need in mods, need
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
