@@ -86,7 +86,29 @@ Phases:
     walls, senseamp launches and peak memory; a 4-bank noisy ``dram``
     engine, fused equal to the loop (and numpy draws card == CPU); the
     reference's 2-bank host-staged lint case equal to BENCH_pr10's
-    ``static_detail`` fused numbers.
+    ``static_detail`` fused numbers;
+14. the attention backward kernel (``check_flash_attention_bwd``, phase 3
+    with the other kernels): at the training shape (bf16, B = 2, Sq = Sk =
+    2048, 32 / 8 heads of 80, causal) the forward kernel against its plain
+    version (out per element, lse), then dq / dk / dv against the plain
+    twin, each within twice the bf16 twin's own error against a float64
+    evaluation (``grad_excess``); the float32 variant (window + softcap)
+    within 1e-5 of plain; two runs bit-identical; times beside the bound
+    (the five products over the visible pairs) and SDPA's backward;
+15. the training path (``train_path``, after serving): qwen3-4b uncut
+    (bf16 parameters, AdamW, remat="block", random weights from a seeded
+    generator) for 3 steps of 2 x 2048 tokens from ``SyntheticLM`` (dedup
+    on the card) through ``build_train_step``, then one eval step: finite
+    loss and grad norm, exactly 36 x 2 x 3 attention forwards (the remat
+    recompute included) and 36 x 3 backwards;
+16. the float32 training parity (``train_f32_card``): the same widths cut
+    to 2 layers and a vocabulary of 8,192, float32, TF32 off, 2
+    microbatches, int8 error feedback, from one ``train_state_from_numpy``
+    state: each step's gradients and loss, 2 AdamW steps and 1 Adafactor
+    step card (the kernels) against CPU (the plain twins) — the
+    parameters on the CPU's gradients, the free-running card's losses —
+    and a resume through ``CheckpointManager`` bit-equal to the
+    uninterrupted run.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -130,11 +152,17 @@ ONE_BIT_OPS_PER_S = 8 * INT8_OPS_PER_S
 #: of the bf16 attention kernel
 BF16_OPS_PER_S = 989e12
 KERNEL_SOURCES = ("senseamp", "bitwise", "bitserial", "popcount_gemm",
-                  "flash_attention")
+                  "flash_attention", "flash_attention_bwd")
 #: the served model and engine (src/repro/configs/qwen3_4b.py, uncut)
 SERVE_ARCH, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = "qwen3-4b", 4, 4096, 32
 #: prompt lengths are drawn from this range (numpy default_rng(0))
 SERVE_PROMPTS = (256, 2048)
+#: the trained model (src/repro/configs/qwen3_4b.py, uncut: AdamW,
+#: remat="block", bf16 parameters) and its batch and steps
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3-4b", 2, 2048, 3
+#: the float32 card-vs-CPU training check: the same widths cut to these
+#: (so the CPU side stays small), its sequence length
+TRAIN_F32_LAYERS, TRAIN_F32_VOCAB, TRAIN_F32_SEQ = 2, 8192, 256
 #: cache position of an unwritten slot (POS_SENTINEL)
 SENTINEL = (2 ** 31 - 1) // 2
 #: the projection widths of src/repro/configs/qwen3_4b.py, on 2048 tokens
@@ -1298,19 +1326,20 @@ def _attention_bound(q, k, q_pos, kv_pos) -> tuple[float, str, dict]:
     return t_bytes, "bytes", count
 
 
-def _time_graph_ms(fn, reps: int = 20) -> float:
+def _time_graph_ms(fn, reps: int = 20, stream=None) -> float:
     """Device time of one call back to back with no host launch cost
     between calls: ``reps`` calls captured in a CUDA graph (after a
     warm-up on a side stream), one replay timed with CUDA events, over the
-    count."""
-    side = torch.cuda.Stream()
+    count.  ``stream``: warm up and capture on it (an autograd backward
+    runs on the stream of its forward, so that stream must capture)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -1698,6 +1727,378 @@ def serve_f32_parity(counts: Counts, params) -> dict:
     return {"rel_max_abs_diff": rel}
 
 
+# ---------------------------------------------------------------------------
+# The training path: the attention backward kernel, then qwen3-4b steps
+# ---------------------------------------------------------------------------
+def _bwd_bound(q, k, q_pos, kv_pos) -> tuple[float, str, dict]:
+    """Least time (ms) of the backward on these inputs: operations = the
+    five products over the visible pairs (S, dP, dV, dQ, dK: 2·hd each a
+    pair and head, 10·hd in all) at the dense rate of q's type; bytes = q,
+    k, v, out, dout and the positions read once, lse read once, dq, dk, dv
+    written once."""
+    b, sq, h, hd = q.shape
+    keep = q_pos[:, :, None] >= kv_pos[:, None, :]
+    pairs = int(keep.sum()) * h
+    nops = 10 * pairs * hd
+    es = q.element_size()
+    nbytes = (es * (4 * q.numel() + 4 * k.numel()) + 4 * b * h * sq
+              + 4 * (q_pos.numel() + kv_pos.numel()))
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else OPS_PER_S
+    t_ops, t_bytes = nops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    count = {"visible_pairs": pairs, "operations": nops, "bytes": nbytes}
+    if t_ops >= t_bytes:
+        return t_ops, "operations", count
+    return t_bytes, "bytes", count
+
+
+#: the bf16 backward's tolerance (``grad_excess``): each gradient's largest
+#: error against a float64 evaluation at most twice the bf16 plain twin's
+BWD_BF16_TOL = "max|kernel - f64| <= 2 max|plain_bf16 - f64|, per gradient"
+
+
+def check_flash_attention_bwd(FA) -> dict:
+    """The attention backward kernel against its plain twin on the card.
+
+    The training shape (bf16 q / k / v, B = 2, Sq = Sk = 2048, qwen3-4b's
+    32 / 8 heads of 80, positions 0..2047, causal): first the forward
+    kernel there against its plain version (out per element within
+    ``bf16_out_tolerance``, lse within 1e-4: the backward reads it), then
+    dq, dk, dv from the kernel against the plain twin on the kernel's out
+    and lse, each within ``BWD_BF16_TOL`` of a float64 evaluation of the
+    same function on the same inputs; two runs bit-identical.  The float32
+    variant on a small shape (B = 2, 300 queries at 200.. over 333 keys, a
+    sentinel tail, G = 4, hd 80, window 97, softcap 30): each gradient
+    within 1e-5 of the plain twin's largest entry.  Timed at the training
+    shape queued, in a CUDA graph and with the L2 flushed, beside the
+    bound, the plain twin and SDPA's backward (``torch.autograd.grad``
+    through ``scaled_dot_product_attention(is_causal=True)`` on K/V
+    repeated to the 32 heads: the same visible pairs; time only) on the
+    same three measures.  -> the kernel row."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9090)
+    b, sq, h, kvh, hd = TRAIN_BATCH, TRAIN_SEQ, 32, 8, 80
+    pos = torch.arange(sq, dtype=torch.int32, device="cuda").repeat(b, 1)
+    q, k, v, qp, kp = _attention_case(gen, b, sq, sq, h, kvh, hd,
+                                      torch.bfloat16, torch.bfloat16, pos,
+                                      pos)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out, lse = FA.flash_attention_cuda(q, k, v, qp, kp)
+    want = FA.flash_attention_plain(q, k, v, qp, kp)
+    torch.cuda.synchronize()
+    fwd = {"out_vs_tol": _excess(out, want[0], FA.bf16_out_tolerance(
+        q, k, v, qp, kp, want)),
+        "lse_max_abs_diff": float((lse - want[1]).abs().max())}
+    assert fwd["out_vs_tol"] <= 1.0 and fwd["lse_max_abs_diff"] <= 1e-4, fwd
+    del want
+    args = (q, k, v, qp, kp, out, lse, do)
+    got = FA.flash_attention_bwd_cuda(*args)
+    again = FA.flash_attention_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(x, y) for x, y in zip(got, again))
+    assert identical, "two runs of the backward differ"
+    del again
+    plain = FA.flash_attention_bwd_plain(*args)
+    exact = FA.flash_attention_bwd_plain(
+        *(x.double() if x.is_floating_point() else x for x in args))
+    names = ("dq", "dk", "dv")
+    errors = {}
+    for name, g, w, e in zip(names, got, plain, exact):
+        errors[name] = {
+            "kernel_vs_f64": float((g.double() - e).abs().max()),
+            "plain_vs_f64": float((w.double() - e).abs().max()),
+            "kernel_vs_plain": float((g.float() - w.float()).abs().max()),
+            "excess": FA.grad_excess(g, w, e)}
+        assert errors[name]["excess"] <= 1.0, (name, errors[name])
+    del plain, exact
+    # the float32 variant: window, softcap, a sentinel tail, G = 4
+    qp32 = (torch.arange(300, dtype=torch.int32, device="cuda") + 200
+            ).repeat(2, 1)
+    kp32 = torch.arange(333, dtype=torch.int32, device="cuda").repeat(2, 1)
+    kp32[-1, 300:] = SENTINEL
+    f = _attention_case(gen, 2, 300, 333, 16, 4, hd, torch.float32,
+                        torch.float32, qp32, kp32)
+    kw = {"window": 97, "softcap": 30.0}
+    fo, fl = FA.flash_attention_cuda(*f, **kw)
+    fdo = torch.randn(fo.shape, generator=gen, device="cuda")
+    f_args = (*f, fo, fl, fdo)
+    f_got = FA.flash_attention_bwd_cuda(*f_args, **kw)
+    f_want = FA.flash_attention_bwd_plain(*f_args, **kw)
+    torch.cuda.synchronize()
+    f32 = {n: float((g - w).abs().max() / w.abs().max())
+           for n, g, w in zip(names, f_got, f_want)}
+    assert max(f32.values()) <= 1e-5, f32
+    # times at the training shape
+    bound, by, count = _bwd_bound(q, k, qp, kp)
+    kernel = lambda: FA.flash_attention_bwd_cuda(*args)  # noqa: E731
+    row = {"ms": round(_time_ms(kernel), 6),
+           "graph_ms": round(_time_graph_ms(kernel), 6),
+           "cold_ms": round(_time_cold_ms(kernel), 6),
+           "plain_ms": round(_time_ms(lambda: FA.flash_attention_bwd_plain(
+               *args), reps=3), 6),
+           "bound_ms": round(bound, 6), "bound_by": by}
+    # the yardstick's forward on a stream of its own: its backward runs
+    # there, and a CUDA graph can capture it there
+    lib_stream = torch.cuda.Stream()
+    lib_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(lib_stream):
+        qs = q.transpose(1, 2).detach().requires_grad_()
+        ks, vs = (t.repeat_interleave(h // kvh, 2).transpose(1, 2)
+                  .contiguous().requires_grad_() for t in (k, v))
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True)
+        dos = do.transpose(1, 2)
+        library = lambda: torch.autograd.grad(  # noqa: E731
+            o, (qs, ks, vs), dos, retain_graph=True)
+        row["library_ms"] = round(_time_ms(library), 6)
+        row["library_cold_ms"] = round(_time_cold_ms(library), 6)
+        try:
+            row["library_graph_ms"] = round(_time_graph_ms(
+                library, stream=lib_stream), 6)
+        except RuntimeError as e:        # the backward would not capture
+            row["library_graph_ms"] = None
+            row["library_graph_error"] = str(e).splitlines()[0][:200]
+    torch.cuda.synchronize()
+    for how in ("", "graph_", "cold_"):
+        lib = row[f"library_{how}ms"]
+        row[f"{how}vs_library"] = (round(row[f"{how}ms"] / lib, 4)
+                                   if lib else None)
+    print(f"[flash_attention_bwd] training shape: forward out / tolerance "
+          f"{fwd['out_vs_tol']:.4f}, lse |diff| {fwd['lse_max_abs_diff']}; "
+          f"backward vs float64 {json.dumps(errors)}; float32 variant "
+          f"rel {json.dumps(f32)}; two runs bit-identical", flush=True)
+    print(f"[flash_attention_bwd] kernel / SDPA backward: queued "
+          f"{row['vs_library']}, graph {row['graph_vs_library']}, cold "
+          f"{row['cold_vs_library']}", flush=True)
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/layers.py:266",
+            "launches": None,
+            "max_abs_err": max(e["kernel_vs_plain"] for e in errors.values()),
+            "errors": errors, "tolerance": BWD_BF16_TOL,
+            "f32_rel_err": f32, "forward_at_training_shape": fwd,
+            "bit_identical": identical, **row, **count,
+            "shape": {"B": b, "Sq": sq, "Sk": sq, "H": h, "KV": kvh,
+                      "hd": hd, "dtype": "bfloat16", "causal": True}}
+
+
+def train_path(counts: Counts, card: str) -> dict:
+    """qwen3-4b uncut, trained: 3 steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+    tokens through ``build_train_step`` (AdamW, remat="block", the
+    reference's default ``TrainConfig``), batches from ``SyntheticLM``
+    with dedup on the card, then one eval step.  Every layer's attention
+    runs the forward kernel twice a step (the block's forward and its
+    recompute) and the backward kernel once."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.config import TrainConfig
+    from repro_torch.train import step as TS
+    cfg = get_config(TRAIN_ARCH)
+    tc = TrainConfig()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = TS.init_state(gen, cfg, tc)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, dedup=True))
+    step = TS.build_train_step(cfg, tc)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    walls, recs = [], []
+    for i in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, m = step(state, data.batch(i))
+        recs.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    c = counts.read("train_path")
+    peak = torch.cuda.max_memory_allocated()
+    assert c["flash_attention"] == cfg.n_layers * 2 * TRAIN_STEPS, c
+    assert c["flash_attention_bwd"] == cfg.n_layers * TRAIN_STEPS, c
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+               for r in recs), recs
+    counts.reset()
+    ev = {k: float(v) for k, v in TS.build_eval_step(cfg)(
+        state["params"], data.batch(TRAIN_STEPS)).items()}
+    e = counts.read("train_eval")
+    assert e["flash_attention"] == cfg.n_layers and \
+        e["flash_attention_bwd"] == 0, e
+    assert np.isfinite(ev["loss"]), ev
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"arch": TRAIN_ARCH, "params": n_params, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "step_wall_s": walls,
+           "tokens_per_s": [tokens / w for w in walls],
+           "loss": [r["loss"] for r in recs],
+           "grad_norm": [r["grad_norm"] for r in recs],
+           "lr": [r["lr"] for r in recs], "eval": ev,
+           "flash_attention_launches": c["flash_attention"],
+           "flash_attention_bwd_launches": c["flash_attention_bwd"],
+           "dedup_dropped": data.dropped, "peak_bytes": peak,
+           "init_s": init_s, "card": card}
+    print(f"[train] {TRAIN_ARCH} full width ({n_params} parameters, bf16, "
+          f"AdamW, remat=block) on {card}: step walls {walls} s, tokens/s "
+          f"{out['tokens_per_s']}, loss {out['loss']}, grad norm "
+          f"{out['grad_norm']}, lr {out['lr']}; eval loss {ev['loss']}; "
+          f"peak memory {peak} B", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _reference_layout(tree):
+    """A port state as numpy in the reference's layout: the ``blocks``
+    list stacked on a leading layer axis (what
+    ``convert.train_state_from_numpy`` takes)."""
+    if isinstance(tree, dict):
+        return {k: (_stack_layers(v) if k == "blocks" and isinstance(v, list)
+                    else _reference_layout(v)) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def _stack_layers(layers):
+    if isinstance(layers[0], dict):
+        return {k: _stack_layers([lay[k] for lay in layers])
+                for k in layers[0]}
+    return np.stack([t.detach().cpu().numpy() for t in layers])
+
+
+def train_f32_card(counts: Counts) -> dict:
+    """qwen3-4b's widths cut to ``TRAIN_F32_LAYERS`` layers and a
+    ``TRAIN_F32_VOCAB`` vocabulary (cuts, so the CPU side stays small), in
+    float32 with TF32 off, 2 microbatches and int8 error feedback, from
+    one ``train_state_from_numpy`` state on the card (the kernels) and on
+    the CPU (the plain twins); float32 throughout, sums in other orders.
+
+    * AdamW, 2 steps: at each step the card's accumulated gradients within
+      1e-4 of each leaf's largest entry of the CPU's, its loss within 1e-5
+      relative; each device applies the CPU's gradients (compression,
+      clipping, the learning rate, the optimizer: ``apply_update``), and
+      the parameters after 2 steps agree within 2e-5.  A free-running
+      card trajectory cannot be held to 2e-5: AdamW divides each gradient
+      by its own root mean square, and int8 rounds it to levels of
+      max/127, so an element whose gradient sits at 0 or on a rounding
+      boundary moves by a whole ``lr`` on one device and not on the other
+      (measured in PERF.md §6).
+    * The same 2 steps free-running on the card (``build_train_step``,
+      its own gradients): losses within 1e-5 relative of the CPU's, the
+      parameters' largest difference and the count over 2e-5 printed; the
+      launch counts held.
+    * Adafactor, 1 step, as the AdamW steps.
+    * Resume on the card: save the free-running state after step 1,
+      restore into a fresh state, run step 2: bit-equal to the
+      uninterrupted run (the kernels have no atomics)."""
+    import tempfile
+
+    from repro_torch import convert
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.config import TrainConfig
+    from repro_torch.train import optim as TO
+    from repro_torch.train import step as TS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH).replace(
+        n_layers=TRAIN_F32_LAYERS, vocab=TRAIN_F32_VOCAB,
+        param_dtype="float32", compute_dtype="float32")
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                     n_microbatches=2, grad_compression="int8_ef")
+    init = _reference_layout(TS.init_state(torch.Generator().manual_seed(1),
+                                           cfg, tc, "cpu"))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_F32_SEQ,
+                                  global_batch=2), device="cpu")
+    batches = [data.batch(i) for i in range(2)]
+    out: dict = {"cuts": {"n_layers": TRAIN_F32_LAYERS,
+                          "vocab": TRAIN_F32_VOCAB, "seq": TRAIN_F32_SEQ}}
+
+    def grad_rel(card, cpu):
+        return max(float((x.cpu() - y).abs().max())
+                   / max(float(y.abs().max()), 1e-30)
+                   for x, y in zip(card, cpu))
+
+    def param_diff(card, cpu):
+        a, b = TO.tree_leaves(card), TO.leaves_like(cpu, card)
+        return (max(float((x.cpu() - y).abs().max()) for x, y in zip(a, b)),
+                sum(int(((x.cpu() - y).abs() > 2e-5).sum())
+                    for x, y in zip(a, b)))
+
+    def forced(cfg_o, init_o, steps):
+        """Both devices step on the CPU's gradients; -> (per step: card
+        gradient rel, loss rel), parameter max |diff|, states."""
+        st = {d: convert.train_state_from_numpy(init_o, cfg_o, tc, d)
+              for d in ("cuda", "cpu")}
+        per = []
+        for b in batches[:steps]:
+            g_cpu, m_cpu = TS.accumulate_grads(st["cpu"]["params"], cfg_o,
+                                               tc, b)
+            g_card, m_card = TS.accumulate_grads(st["cuda"]["params"],
+                                                 cfg_o, tc, b)
+            per.append({"grad_rel": grad_rel(g_card, g_cpu),
+                        "loss_rel": abs(float(m_card["loss"])
+                                        - float(m_cpu["loss"]))
+                        / abs(float(m_cpu["loss"])),
+                        "loss": float(m_cpu["loss"])})
+            del g_card
+            TS.apply_update(st["cuda"], [g.cuda() for g in g_cpu], cfg_o, tc)
+            TS.apply_update(st["cpu"], g_cpu, cfg_o, tc)
+        return per, param_diff(st["cuda"]["params"], st["cpu"]["params"]), st
+
+    out["adamw"], (out["adamw_param_abs"], _n), st = forced(cfg, init, 2)
+    cpu_losses = [r["loss"] for r in out["adamw"]]
+    # free-running on the card: its own gradients
+    free = convert.train_state_from_numpy(init, cfg, tc, "cuda")
+    step = TS.build_train_step(cfg, tc)
+    counts.reset()
+    free_losses = [float(step(free, b)[1]["loss"]) for b in batches]
+    c = counts.read("train_f32_card")
+    per = tc.n_microbatches * cfg.n_layers * len(batches)
+    assert c["flash_attention"] == 2 * per and \
+        c["flash_attention_bwd"] == per, c
+    out["free_loss_rel"] = max(abs(a - b) / abs(b)
+                               for a, b in zip(free_losses, cpu_losses))
+    out["free_param_abs"], out["free_params_over_2e-5"] = param_diff(
+        free["params"], st["cpu"]["params"])
+    del st
+    # Adafactor: the same parameters, its own fresh slots
+    cfg_af = cfg.replace(optimizer="adafactor")
+    init_af = dict(init, opt=_reference_layout(TO.adafactor_init(
+        TS.init_state(torch.Generator().manual_seed(1), cfg_af, tc,
+                      "cpu")["params"])))
+    out["adafactor"], (out["adafactor_param_abs"], _n), _st = forced(
+        cfg_af, init_af, 1)
+    del _st
+    # resume on the card: step 1, save, restore into a fresh state, step 2
+    with tempfile.TemporaryDirectory() as tmp:
+        s1 = convert.train_state_from_numpy(init, cfg, tc, "cuda")
+        s1, _m = step(s1, batches[0])
+        cm = CheckpointManager(tmp)
+        cm.save(1, s1)
+        del s1
+        fresh = convert.train_state_from_numpy(init, cfg, tc, "cuda")
+        at, resumed = cm.restore(fresh)
+        del fresh
+        resumed, _m = step(resumed, batches[1])
+    got, want = TO.tree_leaves(resumed), TO.leaves_like(free, resumed)
+    out["resume_bit_equal"] = at == 1 and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want))
+    print(f"[train] {TRAIN_F32_LAYERS}-layer float32 training, card (kernels)"
+          f" vs CPU (plain): AdamW per step {out['adamw']}, params on the "
+          f"CPU's gradients |diff| {out['adamw_param_abs']}; free-running "
+          f"card losses {free_losses} vs {cpu_losses} (rel "
+          f"{out['free_loss_rel']}), params |diff| {out['free_param_abs']} "
+          f"({out['free_params_over_2e-5']} over 2e-5); Adafactor "
+          f"{out['adafactor']}, params |diff| {out['adafactor_param_abs']}; "
+          f"resume bit-equal {out['resume_bit_equal']}", flush=True)
+    for r in out["adamw"] + out["adafactor"]:
+        assert r["grad_rel"] <= 1e-4 and r["loss_rel"] <= 1e-5, out
+    assert out["free_loss_rel"] <= 1e-5, out
+    assert out["adamw_param_abs"] <= 2e-5 and \
+        out["adafactor_param_abs"] <= 2e-5, out
+    assert out["resume_bit_equal"], out
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on the "
@@ -1726,7 +2127,7 @@ def main() -> int:
 
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         list(pool.map(build.load, KERNEL_SOURCES))
-    for name in ("popcount_gemm", "flash_attention"):
+    for name in ("popcount_gemm", "flash_attention", "flash_attention_bwd"):
         for line in _ptxas_summary(build.BUILD_LOGS.get(name, "")):
             print(f"[ptxas] {line}", flush=True)
     t0 = _phase("build", t0, times)
@@ -1752,6 +2153,13 @@ def main() -> int:
               f"{r['library_ms']} ms (cold {r.get('library_cold_ms')}), "
               f"bound {r['bound_ms']} ms ({r['bound_by']}) at {r['shape']}",
               flush=True)
+    bwd_row = check_flash_attention_bwd(FA)
+    print(f"[flash_attention_bwd] kernel {bwd_row['ms']} ms (graph "
+          f"{bwd_row['graph_ms']}, cold {bwd_row['cold_ms']}), plain "
+          f"{bwd_row['plain_ms']} ms, SDPA backward {bwd_row['library_ms']} "
+          f"ms (graph {bwd_row['library_graph_ms']}, cold "
+          f"{bwd_row['library_cold_ms']}), bound {bwd_row['bound_ms']} ms "
+          f"({bwd_row['bound_by']}) at {bwd_row['shape']}", flush=True)
     t0 = _phase("kernel_vs_plain", t0, times)
 
     # ---- main path: the launch count covers exactly these calls ----
@@ -1855,10 +2263,18 @@ def main() -> int:
     print("[serve] " + json.dumps(serve_f32_parity(counts, params)),
           flush=True)
     del params
+    torch.cuda.empty_cache()
     t0 = _phase("serve_path", t0, times)
+
+    # ---- the decoder LM trained: full width, then float32 card vs CPU ----
+    train_out = train_path(counts, card)
+    print("[train] " + json.dumps(train_out), flush=True)
+    t0 = _phase("train_path", t0, times)
+    print("[train] " + json.dumps(train_f32_card(counts)), flush=True)
+    t0 = _phase("train_f32_card", t0, times)
     print("[times] " + json.dumps(times), flush=True)
 
-    rows = [row, *bit_rows, fa_row, merge_row]
+    rows = [row, *bit_rows, fa_row, merge_row, bwd_row]
     for r in rows:
         r["launches"] = counts.total(r["name"])
         r["launches_by_path"] = {p: c[r["name"]]

@@ -14,9 +14,12 @@ int32 bit patterns (``repro_torch.pud.engine.as_planes`` does this).
 
 The binary linear layers do hold weights: :func:`binary_linear_from_numpy`
 turns the reference's ``{"w": (out, in)}`` parameters, as numpy arrays,
-into the port's :class:`~repro_torch.models.quant.BinaryLinear`; and
+into the port's :class:`~repro_torch.models.quant.BinaryLinear`;
 :func:`lm_params_from_numpy` turns the reference decoder's parameter tree
-into the port's, so both compute the same model.
+into the port's, so both compute the same model; and
+:func:`train_state_from_numpy` turns the reference's whole train state
+(parameters, AdamW moments or Adafactor slots, error-feedback residuals,
+step) into the port's, so both train from the same state.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch
 
 from .core.analog import AnalogParams
 from .core.simulator import BankSim, resolve_device
-from .models.config import ModelConfig
+from .models.config import ModelConfig, TrainConfig
 from .models.quant import BinaryLinear
 from .models.transformer import check_supported
 
@@ -131,3 +134,31 @@ def lm_params_from_numpy(params: dict, cfg: ModelConfig,
     conv["blocks"] = [_map(lambda a, i=i: _tensor(a[i], dev), stacked)
                       for i in range(n)]
     return conv
+
+
+def train_state_from_numpy(state: dict, cfg: ModelConfig, tc: TrainConfig,
+                           device: str | torch.device = "cuda") -> dict:
+    """The port's train state on ``device`` from the reference's
+    ``repro.train.step.init_state`` state (or one it stepped) as numpy
+    arrays (``jax.tree.map(np.asarray, state)``): ``params``, ``opt``
+    (AdamW ``m`` / ``v`` / ``count``, or Adafactor ``slots`` / ``count``),
+    ``ef`` (with ``grad_compression="int8_ef"``) and ``step``.  Trees shaped
+    as the parameters (params, ``m``, ``v``, ``ef``) are unstacked per layer
+    as :func:`lm_params_from_numpy` does; Adafactor's slots keep the
+    reference's layout, stacked blocks included (``repro_torch.train.
+    optim.adafactor_init``)."""
+    dev = resolve_device(device)
+    like = lambda tree: lm_params_from_numpy(tree, cfg, dev)  # noqa: E731
+    opt = state["opt"]
+    if cfg.optimizer == "adamw":
+        new_opt = {"m": like(opt["m"]), "v": like(opt["v"])}
+    elif cfg.optimizer == "adafactor":
+        new_opt = {"slots": _map(lambda a: _tensor(a, dev), opt["slots"])}
+    else:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    new_opt["count"] = _tensor(opt["count"], dev)
+    out = {"params": like(state["params"]), "opt": new_opt,
+           "step": _tensor(state["step"], dev)}
+    if tc.grad_compression == "int8_ef":
+        out["ef"] = like(state["ef"])
+    return out

@@ -38,6 +38,21 @@ padding sentinel): what a CPU tensor gets and what the kernel is held
 against on the card, within :func:`bf16_out_tolerance` at bf16;
 :func:`split_partials_plain` and :func:`combine_plain` are the split
 path's twins.
+
+The backward of the region (``_fused_flash_bwd_impl``, behind the
+reference's ``custom_vjp``) is :func:`flash_attention_bwd_cuda`, which
+launches ``csrc/flash_attention_bwd.cu``: from q, k, v, the positions, the
+forward's ``out`` and ``lse`` and ``dout`` it gives ``dq`` (B, Sq, H, hd)
+and ``dk`` / ``dv`` (B, Sk, KV, hd) per kv head — the reference's
+per-query-head ``dk`` / ``dv`` summed over each group, the transpose of its
+``jnp.repeat`` of K/V.  Three kernels in one host call: ``delta =
+rowsum(dout * out)``, then one block per (batch, kv head, 64 keys) walking
+the query tiles of all the group's heads for ``dk`` / ``dv``, and one per
+(batch, query head, 64 queries) walking the key tiles for ``dq``; no
+floating-point atomics, so two runs give bit-identical gradients.  bf16 on
+``mma.sync``, float32 on the CUDA cores.  :func:`flash_attention_bwd_plain`
+is its plain twin, a chunked transcription of ``_fused_flash_bwd_impl``
+over the repeated heads followed by the group sum.
 """
 from __future__ import annotations
 
@@ -63,13 +78,17 @@ SPLIT_BLOCKS_PER_SM = 4
 
 #: kernel launches since the counts were last reset (plain calls not
 #: counted); ``flash_attention`` counts calls, ``flash_attention_combine``
-#: the merges of the split ones
-launches = {"flash_attention": 0, "flash_attention_combine": 0}
+#: the merges of the split ones, ``flash_attention_bwd`` backward calls
+#: (three device kernels each)
+launches = {"flash_attention": 0, "flash_attention_combine": 0,
+            "flash_attention_bwd": 0}
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
-def _check(q, k, v, q_pos, kv_pos) -> None:
+def _check(q, k, v, q_pos, kv_pos, f64: bool = False) -> None:
+    """Raise on what the function does not take; ``f64`` also lets q, k
+    and v be float64 all three (the plain twins' float64 evaluation)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B, Sq, H, hd) and k, v (B, Sk, KV, hd); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -87,18 +106,23 @@ def _check(q, k, v, q_pos, kv_pos) -> None:
                          f"({b}, {sk})")
     if q_pos.dtype != torch.int32 or kv_pos.dtype != torch.int32:
         raise ValueError("positions must be int32")
-    if q.dtype not in _FLOATS or k.dtype not in _FLOATS or v.dtype != k.dtype:
+    all64 = f64 and q.dtype == k.dtype == v.dtype == torch.float64
+    if not all64 and (q.dtype not in _FLOATS or k.dtype not in _FLOATS
+                      or v.dtype != k.dtype):
         raise ValueError(f"q must be float32 or bfloat16 and k, v one of "
                          f"those alike; got {q.dtype}, {k.dtype}, {v.dtype}")
 
 
 def _partials_plain(q, k, v, q_pos, kv_pos, window, softcap):
-    """The online softmax over every key: -> float32 m, l (B, KV, G, Sq)
-    and acc (B, KV, G, Sq, hd), unnormalized."""
+    """The online softmax over every key: -> float32 (float64 inputs:
+    float64) m, l (B, KV, G, Sq) and acc (B, KV, G, Sq, hd),
+    unnormalized."""
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     grp = h // kvh
     cdt = q.dtype
+    # float32 sums (float64 for float64 inputs)
+    adt = torch.float64 if cdt == torch.float64 else torch.float32
     scale = 1.0 / math.sqrt(hd)
     chunk = min(KV_CHUNK, sk)
     n_chunks = -(-sk // chunk)
@@ -110,16 +134,14 @@ def _partials_plain(q, k, v, q_pos, kv_pos, window, softcap):
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=PAD_POS)
-    qf = q.float().reshape(b, sq, kvh, grp, hd)
+    qf = q.to(adt).reshape(b, sq, kvh, grp, hd)
     qp = q_pos[:, None, None, :, None]
-    m = torch.full((b, kvh, grp, sq), NEG, dtype=torch.float32,
-                   device=q.device)
+    m = torch.full((b, kvh, grp, sq), NEG, dtype=adt, device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((b, kvh, grp, sq, hd), dtype=torch.float32,
-                      device=q.device)
+    acc = torch.zeros((b, kvh, grp, sq, hd), dtype=adt, device=q.device)
     for i in range(n_chunks):
         sl = slice(i * chunk, (i + 1) * chunk)
-        k_i, v_i = k[:, sl].float(), v[:, sl]
+        k_i, v_i = k[:, sl].to(adt), v[:, sl]
         p_i = kv_pos[:, None, None, None, sl]
         s = torch.einsum("bqkgd,bckd->bkgqc", qf, k_i) * scale
         if softcap > 0.0:
@@ -134,15 +156,16 @@ def _partials_plain(q, k, v, q_pos, kv_pos, window, softcap):
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.einsum(
-            "bkgqc,bckd->bkgqd", p.to(v_i.dtype).float(), v_i.float())
+            "bkgqc,bckd->bkgqd", p.to(v_i.dtype).to(adt), v_i.to(adt))
         m = m_new
     return m, l, acc
 
 
 def flash_attention_plain(q, k, v, q_pos, kv_pos, *, window: int = 0,
                           softcap: float = 0.0):
-    """Plain twin: -> (out (B, Sq, H, hd) in q's type, lse (B, H, Sq))."""
-    _check(q, k, v, q_pos, kv_pos)
+    """Plain twin: -> (out (B, Sq, H, hd) in q's type, lse (B, H, Sq)),
+    float32 (float64 for float64 inputs)."""
+    _check(q, k, v, q_pos, kv_pos, f64=True)
     b, sq, h, hd = q.shape
     m, l, acc = _partials_plain(q, k, v, q_pos, kv_pos, window, softcap)
     out = acc / torch.clamp(l[..., None], min=1e-20)
@@ -404,3 +427,151 @@ def combine_cuda(part_acc, part_ml, dtype):
                            f"error {err}")
     launches["flash_attention_combine"] += 1
     return out, lse
+
+
+# ---------------------------------------------------------------------------
+# Backward of the region
+# ---------------------------------------------------------------------------
+def _check_bwd(q, out, lse, dout) -> None:
+    b, sq, h, _hd = q.shape
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be q's shape "
+                         f"{tuple(q.shape)}")
+    if tuple(lse.shape) != (b, h, sq):
+        raise ValueError(f"lse {tuple(lse.shape)} is not (B, H, Sq) = "
+                         f"{(b, h, sq)}")
+
+
+def flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse, dout, *,
+                              window: int = 0, softcap: float = 0.0):
+    """Plain twin of the backward: -> (dq in q's type, dk in k's, dv in
+    v's), a chunked transcription of the reference's
+    ``_fused_flash_bwd_impl`` (KV chunks of ``KV_CHUNK``, padded keys at
+    ``PAD_POS``) over K/V repeated to the H query heads, followed by the
+    group sum of dk / dv in float32.  The compute type is q's (K and V
+    rounded to it); p and ds are rounded to it before their products and
+    each query head's dk / dv after; products and sums run in float32
+    (float64 for float64 inputs, which makes this the float64 evaluation
+    the bf16 kernel's tolerance is measured from).  ``delta =
+    sum((dout * out) in float32)`` takes the product at the activation
+    type first, as the reference does."""
+    _check(q, k, v, q_pos, kv_pos, f64=True)
+    _check_bwd(q, out, lse, dout)
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    grp = h // kvh
+    cdt = q.dtype
+    acc = torch.float64 if cdt == torch.float64 else torch.float32
+    scale = 1.0 / math.sqrt(hd)
+    chunk = min(KV_CHUNK, sk)
+    n_chunks = -(-sk // chunk)
+    pad = n_chunks * chunk - sk
+    kr = k.to(cdt).repeat_interleave(grp, dim=2)
+    vr = v.to(cdt).repeat_interleave(grp, dim=2)
+    if pad:
+        kr = torch.nn.functional.pad(kr, (0, 0, 0, 0, 0, pad))
+        vr = torch.nn.functional.pad(vr, (0, 0, 0, 0, 0, pad))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=PAD_POS)
+    qa = q.to(acc)
+    do = dout.to(cdt).permute(0, 2, 1, 3).to(acc)             # (B, H, Sq, hd)
+    delta = (dout * out).to(acc).sum(-1).permute(0, 2, 1)      # (B, H, Sq)
+    lse = lse.to(acc)
+    qp = q_pos[:, None, :, None]
+    dq = torch.zeros((b, sq, h, hd), dtype=acc, device=q.device)
+    dks, dvs = [], []
+    for i in range(n_chunks):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        k_i, v_i = kr[:, sl].to(acc), vr[:, sl].to(acc)
+        p_i = kv_pos[:, None, None, sl]
+        s = torch.einsum("bqhd,bkhd->bhqk", qa, k_i) * scale
+        if softcap > 0.0:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        keep = qp >= p_i
+        if window > 0:
+            keep &= qp - p_i < window
+        p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+        dvs.append(torch.einsum("bhqk,bhqd->bkhd", p.to(cdt).to(acc), do)
+                   .to(cdt))
+        dp = torch.einsum("bhqd,bkhd->bhqk", do, v_i)
+        ds = p * (dp - delta[..., None])
+        if softcap > 0.0:
+            ds = ds * (1.0 - t * t)
+        ds = ds.to(cdt).to(acc)
+        dq += torch.einsum("bhqk,bkhd->bqhd", ds, k_i) * scale
+        dks.append((torch.einsum("bhqk,bqhd->bkhd", ds, qa) * scale)
+                   .to(cdt))
+    # the transpose of the repeat: each kv head sums its group's heads
+    dk = torch.cat(dks, 1)[:, :sk].to(acc).reshape(b, sk, kvh, grp, hd)
+    dv = torch.cat(dvs, 1)[:, :sk].to(acc).reshape(b, sk, kvh, grp, hd)
+    return (dq.to(q.dtype), dk.sum(3).to(k.dtype), dv.sum(3).to(v.dtype))
+
+
+def grad_excess(got, plain, exact, mult: float = 2.0) -> float:
+    """How far a bf16 gradient lies from a float64 evaluation, against the
+    bf16 plain twin's own error: ``max |got - exact| / (mult * max |plain -
+    exact|)`` (at most 1 passes), elementwise against the twin's worst
+    element.  Both round the same float32 sums to bf16 at the same places
+    (p and ds before their products, the result once), in other orders;
+    their errors are of one size, and ``mult = 2`` leaves room for the
+    other order.  A wrong tile or a dropped product would be many times
+    the twin's error."""
+    e_plain = float((plain.double() - exact.double()).abs().max())
+    e_got = float((got.double() - exact.double()).abs().max())
+    return e_got / max(mult * e_plain, 1e-30)
+
+
+_BWD_LIB = None
+
+
+def _bwd_lib():
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        from . import build
+        lib = build.load("flash_attention_bwd")
+        lib.flash_attention_bwd.argtypes = [_VP] * 12 + [_INT] * 7 + [
+            _F, _F, _INT, _INT, _VP]
+        lib.flash_attention_bwd.restype = ctypes.c_int
+        _BWD_LIB = lib
+    return _BWD_LIB
+
+
+def flash_attention_bwd_cuda(q, k, v, q_pos, kv_pos, out, lse, dout, *,
+                             window: int = 0, softcap: float = 0.0):
+    """Launch the backward (three kernels, one host call) on the current
+    stream; -> (dq, dk, dv) as :func:`flash_attention_bwd_plain`.  q, k, v,
+    out and dout must share one type (bf16 or float32), lse is float32, hd
+    a multiple of 8 up to 128; anything else raises."""
+    _check(q, k, v, q_pos, kv_pos)
+    _check_bwd(q, out, lse, dout)
+    if len({q.dtype, k.dtype, v.dtype, out.dtype, dout.dtype}) != 1 \
+            or lse.dtype != torch.float32:
+        raise ValueError(f"want q, k, v, out, dout of one type and float32 "
+                         f"lse; got {q.dtype}, {k.dtype}, {v.dtype}, "
+                         f"{out.dtype}, {dout.dtype}, {lse.dtype}")
+    _want_cuda(q=q, k=k, v=v, q_pos=q_pos, kv_pos=kv_pos, out=out, lse=lse,
+               dout=dout)
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if hd % 8 or hd > 128:
+        raise ValueError(f"hd = {hd}: the kernel takes multiples of 8 up to "
+                         f"128")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"B = {b}, H = {h} exceed the kernel's grid")
+    if b * sq * h == 0:                  # no query: no gradient anywhere
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    idx = q.get_device()
+    err = _bwd_lib().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+        kv_pos.data_ptr(), out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
+        sk, h, kvh, hd, int(window), 1.0 / math.sqrt(hd), float(softcap),
+        int(q.dtype == torch.bfloat16), idx, _stream(idx))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv

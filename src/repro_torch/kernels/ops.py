@@ -12,7 +12,9 @@ the same kernel with identity slot indices.  ``repro_torch.pud.engine``'s
 :func:`popcount_gemm_bits` is the golden twin of the bank-executed dot
 product (``repro_torch.pud.workloads``); :func:`maj3` is an entry point of
 its own.  ``repro_torch.models.layers.apply_attention`` calls
-:func:`flash_attention` once per layer.
+:func:`flash_attention` once per layer, and in training (through the
+``fused_attention`` autograd function) :func:`flash_attention_bwd` once
+per layer of the backward.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from . import senseamp as _senseamp
 from .ref import pack_bits, unpack_bits
 
 __all__ = ["add_planes", "bitcount_planes", "bitwise_not", "flash_attention",
-           "maj3", "nary_bitwise", "nary_bitwise_bits", "pack_bits",
+           "flash_attention_bwd", "maj3", "nary_bitwise", "nary_bitwise_bits", "pack_bits",
            "popcount_gemm", "popcount_gemm_bits", "ref", "senseamp_gather",
            "senseamp_resolve", "senseamp_resolve_trials", "unpack_bits"]
 
@@ -171,3 +173,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     See :mod:`repro_torch.kernels.flash_attention`."""
     return _route(q, _fa.flash_attention_cuda, _fa.flash_attention_plain)(
         q, k, v, q_pos, kv_pos, window=window, softcap=softcap)
+
+
+def flash_attention_bwd(q, k, v, q_pos, kv_pos, out, lse, dout, *,
+                        window: int = 0, softcap: float = 0.0):
+    """The attention region's backward by recompute: the forward's inputs,
+    its ``out`` and ``lse`` and the cotangent ``dout`` -> (dq (B, Sq, H,
+    hd), dk, dv (B, Sk, KV, hd) per kv head).  See
+    :mod:`repro_torch.kernels.flash_attention`."""
+    return _route(q, _fa.flash_attention_bwd_cuda,
+                  _fa.flash_attention_bwd_plain)(
+        q, k, v, q_pos, kv_pos, out, lse, dout, window=window,
+        softcap=softcap)

@@ -1,1 +1,2 @@
-"""Launchers of the port: serve (train and the mesh wait, ROADMAP A-9)."""
+"""Launchers of the port: serve and train, on one device (the mesh and the
+sharded launcher wait, ROADMAP A-7)."""

@@ -55,9 +55,10 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def measure(fn, reps: int = REPS) -> dict:
+def measure(fn, reps: int = REPS, *, every_kernel: bool = False) -> dict:
     """Wall (median of ``reps`` untraced calls after a warm-up) and device
-    time per kernel (one traced call) of ``fn()`` on the card."""
+    time per kernel (one traced call) of ``fn()`` on the card: the 12
+    largest, and with ``every_kernel`` all of them (``"kernels"``)."""
     fn()                                            # warm-up
     walls = []
     for _ in range(reps):
@@ -92,7 +93,8 @@ def measure(fn, reps: int = REPS) -> dict:
             "traced_wall_ms": traced_wall * 1e3,
             "device_ms": device_ms,
             "busy_share": device_ms / wall_ms,
-            "top_kernels": top}
+            "top_kernels": top, **({"kernels": kernels} if every_kernel
+                                   else {})}
 
 
 def profile_cell(kind, op, n, multi) -> dict:

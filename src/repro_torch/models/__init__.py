@@ -1,9 +1,11 @@
 """Model layers of the port (see ``repro.models`` for the reference).
 
-config      — ``ModelConfig`` / ``ShapeConfig`` / ``SHAPES`` (copies)
-layers      — RMSNorm, RoPE, GQA attention on the flash-attention kernel,
-              SwiGLU, embedding
-transformer — the decoder: init_params, forward, init_caches, decode_step
+config      — ``ModelConfig`` / ``ShapeConfig`` / ``SHAPES`` /
+              ``TrainConfig`` (copies)
+layers      — RMSNorm, RoPE, GQA attention on the flash-attention kernels
+              (``fused_attention``: forward and backward), SwiGLU, embedding
+transformer — the decoder: init_params, forward, loss_fn, init_caches,
+              decode_step
 quant       — binary (1-bit) linear layers on the popcount GEMM kernel
 """
 from .quant import (BinaryLinear, apply_binary_linear, binarize_pack,

@@ -1,13 +1,12 @@
-"""Model configuration covering all assigned architecture families (a copy
-of ``repro.models.config``; the training-loop ``TrainConfig`` waits for the
-training slice).
+"""Model configuration covering all assigned architecture families, and the
+training loop's ``TrainConfig`` (a copy of ``repro.models.config``).
 
 One dataclass drives dense GQA transformers, MoE, SSM (Mamba2/SSD), hybrid
 (parallel attention+SSM), audio-token decoders and cross-attention VLM
 backbones.  Exact per-arch instantiations live in ``repro_torch.configs``.
-The port serves ``block_type="attention"`` without MoE or cross-attention;
-``fused_attention`` has no effect in the port (every attention runs the
-flash-attention kernel).
+The port serves and trains ``block_type="attention"`` without MoE or
+cross-attention; ``fused_attention`` has no effect in the port (every
+attention runs the flash-attention kernels, forward and backward).
 """
 from __future__ import annotations
 
@@ -167,3 +166,22 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop configuration (per run)."""
+
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    n_microbatches: int = 1
+    grad_compression: str = "none"   # none | int8_ef (error feedback)
+    seed: int = 0
+    checkpoint_every: int = 200
+    keep_checkpoints: int = 3

@@ -10,13 +10,16 @@ float32 cast to ``x``'s type, logits in float32.
 
 Every attention — prefill, prefill into a cache, decode — is one call of
 :func:`repro_torch.kernels.ops.flash_attention` on the unrepeated K/V: the
-hand-written kernel on a CUDA tensor, its plain twin on a CPU one.  The
-reference chooses between its ``fused_attention`` region and an unfused
-jnp path by ``cfg.fused_attention``; both compute the same function, and
+hand-written kernel on a CUDA tensor, its plain twin on a CPU one.
+Without a cache it goes through :func:`fused_attention`, the autograd
+function of the reference's ``fused_attention`` region: its backward is
+:func:`repro_torch.kernels.ops.flash_attention_bwd` (the backward kernel
+on the card), from the ``out`` and ``lse`` the forward saved.  The
+reference chooses between its region and an unfused jnp path by
+``cfg.fused_attention``; both compute the same function, and
 ``cfg.fused_attention`` has no effect here.  The mesh constraints
 (``constrain_*``) are no-ops without a mesh and are left out.  Not ported
-yet (ROADMAP A-8): cross-attention, ``extra_mask`` and the region's
-backward.
+yet (ROADMAP A-6): cross-attention and ``extra_mask``.
 """
 from __future__ import annotations
 
@@ -81,6 +84,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The fused attention region: forward and backward kernels
+# ---------------------------------------------------------------------------
+class FusedAttention(torch.autograd.Function):
+    """The reference's ``fused_attention`` ``custom_vjp`` (``_fa_fwd`` /
+    ``_fa_bwd``): the forward saves ``out`` and ``lse`` beside its inputs,
+    the backward recomputes the scores from them.  q (B, Sq, H, hd), k / v
+    (B, Sk, KV, hd) unrepeated; dk / dv come back per kv head.  The
+    positions get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, window: int, softcap: float):
+        out, lse = ops.flash_attention(q, k, v, q_pos, kv_pos, window=window,
+                                       softcap=softcap)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
+        ctx.window, ctx.softcap = window, softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
+        dq, dk, dv = ops.flash_attention_bwd(
+            q, k, v, q_pos, kv_pos, out, lse, dout.contiguous(),
+            window=ctx.window, softcap=ctx.softcap)
+        return dq, dk, dv, None, None, None, None
+
+
+def fused_attention(window: int, softcap: float, q, k, v, q_pos, kv_pos):
+    """Attention through the region's kernels, differentiable in q, k, v
+    (the reference's ``layers.fused_attention``, with K/V unrepeated)."""
+    return FusedAttention.apply(q, k, v, q_pos, kv_pos, window, softcap)
+
+
+# ---------------------------------------------------------------------------
 # GQA attention
 # ---------------------------------------------------------------------------
 def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -103,12 +139,14 @@ def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
                     kv_cache: dict | None = None,
                     extra_mask: torch.Tensor | None = None,
                     ) -> tuple[torch.Tensor, dict | None]:
-    """x: (B, S, D); positions (B, S) int32.  kv_cache: {"k", "v": (B,
-    S_max, KV, hd), "pos": (B, S_max) int32}, **updated in place** and
-    returned: decode (S == 1) writes the ring buffer at ``position %
-    S_max``, a prefill into the cache (S > 1) writes its block at 0."""
+    """x: (B, S, D); positions (B, S) int32.  Without a cache (training,
+    a plain forward) the attention is :func:`fused_attention`.  kv_cache:
+    {"k", "v": (B, S_max, KV, hd), "pos": (B, S_max) int32}, **updated in
+    place** and returned: decode (S == 1) writes the ring buffer at
+    ``position % S_max``, a prefill into the cache (S > 1) writes its
+    block at 0."""
     if extra_mask is not None:
-        raise NotImplementedError("extra_mask is not ported yet (ROADMAP A-8)")
+        raise NotImplementedError("extra_mask is not ported yet (ROADMAP A-6)")
     b, s, _d = x.shape
     hd = cfg.hd
     cdt = _dt(cfg, "compute")
@@ -123,19 +161,21 @@ def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     positions = positions.to(torch.int32).contiguous()
 
     if kv_cache is None:
-        k, v, kv_pos = xk, xv, positions
+        out = fused_attention(cfg.sliding_window, cfg.attn_logit_softcap,
+                              xq, xk, xv, positions, positions)
+        out = out.reshape(b, s, cfg.n_heads * hd)
+        return out @ p["wo"].to(cdt), None
+    k, v, kv_pos = kv_cache["k"], kv_cache["v"], kv_cache["pos"]
+    if s == 1:
+        idx = positions[:, 0].long() % k.shape[1]
+        bar = torch.arange(b, device=x.device)
+        k[bar, idx] = xk[:, 0].to(k.dtype)
+        v[bar, idx] = xv[:, 0].to(v.dtype)
+        kv_pos[bar, idx] = positions[:, 0]
     else:
-        k, v, kv_pos = kv_cache["k"], kv_cache["v"], kv_cache["pos"]
-        if s == 1:
-            idx = positions[:, 0].long() % k.shape[1]
-            bar = torch.arange(b, device=x.device)
-            k[bar, idx] = xk[:, 0].to(k.dtype)
-            v[bar, idx] = xv[:, 0].to(v.dtype)
-            kv_pos[bar, idx] = positions[:, 0]
-        else:
-            k[:, :s] = xk
-            v[:, :s] = xv
-            kv_pos[:, :s] = positions
+        k[:, :s] = xk
+        v[:, :s] = xv
+        kv_pos[:, :s] = positions
     out, _lse = ops.flash_attention(xq, k, v, positions, kv_pos,
                                     window=cfg.sliding_window,
                                     softcap=cfg.attn_logit_softcap)

@@ -1,6 +1,6 @@
-"""Config-driven decoder of the port: the serving half of
-``repro.models.transformer`` for ``block_type="attention"`` without MoE or
-cross-attention (others raise ``NotImplementedError``, ROADMAP A-8).
+"""Config-driven decoder of the port: ``repro.models.transformer`` for
+``block_type="attention"`` without MoE or cross-attention (others raise
+``NotImplementedError``, ROADMAP A-6), serving and training.
 
 Parameters are plain dicts as in the reference, with the blocks as a
 Python list (one dict per layer) where the reference stacks them on a
@@ -8,15 +8,25 @@ leading layer axis for ``lax.scan``; the scan becomes a loop over layers.
 Caches are a list of per-layer ``{"kv": {"k", "v", "pos"}}`` dicts,
 updated in place by :func:`decode_step` (and by a prefill into them).
 
+Without a cache, each block runs under the reference's remat policy
+(:func:`remat_wrap`, ``cfg.remat``) when autograd records: ``"block"`` /
+``"full"`` recompute the whole block in the backward
+(``torch.utils.checkpoint``), ``"block_dots"`` saves the matrix products'
+outputs and recomputes the rest; serving (a cache) takes no wrapper.
+
 Entry points:
   init_params(gen, cfg)                  -> parameter dict
   forward(params, cfg, batch)            -> logits (prefill, no cache)
+  loss_fn(params, cfg, batch)            -> (loss, metrics)
   decode_step(params, cfg, tokens, caches, positions) -> (logits, caches)
   init_caches(cfg, batch, s_max)         -> per-layer caches
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from . import layers as L
 from .config import ModelConfig
@@ -30,7 +40,7 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: only attention blocks without MoE or "
             f"cross-attention are ported (block_type={cfg.block_type!r}, "
             f"moe={cfg.moe}, cross_attn_every={cfg.cross_attn_every}); "
-            f"ROADMAP A-8")
+            f"ROADMAP A-6")
 
 
 # ---------------------------------------------------------------------------
@@ -81,14 +91,54 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
+#: the matrix products whose outputs ``remat="block_dots"`` saves (the
+#: reference's ``dots_with_no_batch_dims_saveable``: the projections; the
+#: attention's own products are inside the fused region's kernels)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(_ctx, op, *_args, **_kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(cfg: ModelConfig, fn):
+    """The reference's ``_remat_wrap``: ``"block"`` / ``"full"`` recompute
+    everything of ``fn`` in the backward, ``"block_dots"`` saves the matrix
+    products' outputs and recomputes the elementwise work, ``"none"``
+    saves everything."""
+    if cfg.remat in ("block", "full"):
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "block_dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    if cfg.remat != "none":
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    return fn
+
+
 def run_blocks(params, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor, caches: list[dict] | None = None
                ) -> torch.Tensor:
-    """Every block (the reference's scan), then the final norm."""
+    """Every block (the reference's scan), then the final norm.  Without
+    caches and with autograd recording, each block runs under
+    :func:`remat_wrap`."""
+    remat = caches is None and torch.is_grad_enabled()
     for i, layer_p in enumerate(params["blocks"]):
-        x, _c = apply_block(layer_p, cfg, x, positions,
-                            cache=None if caches is None else caches[i])
+        if remat:
+            x = remat_wrap(cfg, functools.partial(_block_x, layer_p, cfg))(
+                x, positions)
+        else:
+            x, _c = apply_block(layer_p, cfg, x, positions,
+                                cache=None if caches is None else caches[i])
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def _block_x(p: dict, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor) -> torch.Tensor:
+    return apply_block(p, cfg, x, positions)[0]
 
 
 def unembed_table(params, cfg: ModelConfig) -> dict:
@@ -99,12 +149,12 @@ def unembed_table(params, cfg: ModelConfig) -> dict:
 def forward(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """batch: {"tokens": (B, S) int, optional "positions" (B, S)} ->
     logits (B, S, V) float32.  ``input_embeds``, ``image_embeds`` and
-    ``extra_mask`` raise (ROADMAP A-8)."""
+    ``extra_mask`` raise (ROADMAP A-6)."""
     check_supported(cfg)
     for key in ("input_embeds", "image_embeds", "extra_mask"):
         if batch.get(key) is not None:
             raise NotImplementedError(f"{key} is not ported yet "
-                                      f"(ROADMAP A-8)")
+                                      f"(ROADMAP A-6)")
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = batch.get("positions")
@@ -114,6 +164,54 @@ def forward(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     x = L.embed(params["embed"], cfg, tokens)
     x = run_blocks(params, cfg, x, positions)
     return L.unembed(unembed_table(params, cfg), cfg, x)
+
+
+class _TokenNLL(torch.autograd.Function):
+    """Per-token ``logsumexp(logits) - logits[label]`` over the full
+    vocabulary, with no float32 (B, S, V) copy beyond the logits: the
+    forward reduces ``ROWS`` rows at a time, the backward writes
+    ``softmax - onehot`` (times the cotangent) as its one full tensor."""
+
+    ROWS = 1024
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        flat = logits.reshape(-1, logits.shape[-1])
+        lse = torch.cat([torch.logsumexp(flat[i:i + _TokenNLL.ROWS], -1)
+                         for i in range(0, flat.shape[0], _TokenNLL.ROWS)])
+        lse = lse.reshape(labels.shape)
+        gold = logits.gather(-1, labels[..., None])[..., 0]
+        ctx.save_for_backward(logits, labels, lse)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        grad = torch.sub(logits, lse[..., None]).exp_().mul_(g[..., None])
+        grad.scatter_add_(-1, labels[..., None], -g[..., None])
+        return grad, None
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """Causal LM loss (the reference's): mean over ``loss_mask`` (ones when
+    absent) of ``logsumexp(logits) - logits[label]`` -> (loss, {"loss",
+    "accuracy", "tokens"}), 0-d float32 tensors; accuracy is the masked
+    share of argmax hits, tokens the mask's sum."""
+    logits = forward(params, cfg, batch)
+    labels = batch["labels"].long()
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(labels.shape, dtype=torch.float32,
+                       device=logits.device) if mask is None
+            else mask.to(torch.float32))
+    nll = _TokenNLL.apply(logits, labels) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom
+    with torch.no_grad():
+        hits = (logits.argmax(-1) == labels).to(torch.float32)
+        acc = (hits * mask).sum() / denom
+    return loss, {"loss": loss.detach(), "accuracy": acc,
+                  "tokens": mask.sum()}
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,7 @@ The caches live on the engine's device and are written in place: a
 prefill gets views of its slot's caches (:meth:`ServeEngine._slot_caches`)
 and writes them directly, which is what the reference's
 ``_write_slot`` does after its functional prefill.  Attention-block
-architectures only (others raise ``NotImplementedError``, ROADMAP A-8).
+architectures only (others raise ``NotImplementedError``, ROADMAP A-6).
 
 The engine keeps host-clock walls: ``prefill_s`` (one per admitted
 request, prefill + first sample) and ``decode_s`` (one per step, decode +

@@ -11,7 +11,14 @@ against the reference's repeated), one query against a cache holding
 unfused ``_flash_attend`` path.  Inputs are made with numpy and handed to
 both packages.  The split path's plain twin (per-split partials, then the
 merge) equals the unsplit plain version within 1e-6, and
-``decode_splits`` / ``split_plan`` are checked as pure functions.  Tests marked ``cuda``
+``decode_splits`` / ``split_plan`` are checked as pure functions.  The
+backward: ``flash_attention_bwd_plain`` equals ``jax.vjp`` of the
+reference's ``fused_attention`` region over ``jnp.repeat``-ed K/V (dk / dv
+summed over each group) within 1e-5 in float32 — G = 1 / 2 / 4, window,
+softcap, Sk past ``KV_CHUNK``, sentinel-padded keys, rows that see nothing
+— and the unfused ``_flash_attend``'s ``jax.grad``; the autograd function
+``layers.fused_attention`` equals autograd through a dense attention, and
+passes ``gradcheck`` in float64.  Tests marked ``cuda``
 hold the kernels to the plain versions on the card; the reference (which
 needs jax) comes in through a fixture, so they collect where jax is not
 installed.
@@ -439,3 +446,269 @@ def test_combine_kernel_matches_plain_on_card(dtype, card):
         assert float((got[0].float() - want[0].float()).abs().max()) <= 1e-5
     assert float((got[1] - want[1]).abs().max()) <= 1e-5
     assert not got[0][-1].any()
+
+
+# ---------------------------------------------------------------------------
+# The backward of the region: plain twin vs the reference, autograd
+# ---------------------------------------------------------------------------
+#: (B, Sq, Sk, H, KV, hd, q0, sentinel tail, window, softcap)
+BWD_CASES = {
+    "g1": (2, 48, 48, 4, 4, 16, 0, 0, 0, 0.0),
+    "g2_window": (2, 40, 40, 4, 2, 16, 0, 0, 9, 0.0),
+    "g4_softcap": (1, 56, 56, 8, 2, 16, 0, 0, 0, 5.0),
+    "g4_window_softcap": (2, 33, 33, 4, 1, 8, 0, 0, 7, 2.5),
+    # Sk past KV_CHUNK (1024) and not a multiple of it, with padded keys
+    "long_ragged_sentinel": (2, 21, 1100, 4, 2, 16, 1079, 150, 0, 0.0),
+    # a decode row and rows before every key (they see nothing)
+    "decode_sentinel": (3, 1, 80, 4, 2, 16, 49, 30, 0, 0.0),
+    "rows_see_nothing": (2, 6, 20, 2, 1, 16, -3, 0, 0, 0.0),
+}
+
+
+def _dout(seed, q):
+    return np.random.default_rng(seed).normal(0, 1, q.shape).astype(q.dtype)
+
+
+def _reference_vjp(J, q, k, v, qp, kp, do, window, softcap):
+    """jax.vjp of the region over K/V repeated to the query heads: the
+    cotangents of the unrepeated K/V are summed over each group."""
+    import jax
+    rep = q.shape[2] // k.shape[2]
+    jnp = J.jnp
+
+    def f(q, k, v):
+        return J.layers.fused_attention(
+            window, softcap, q, jnp.repeat(k, rep, axis=2),
+            jnp.repeat(v, rep, axis=2), jnp.asarray(qp), jnp.asarray(kp))
+
+    _out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _port_bwd(q, k, v, qp, kp, do, **kw):
+    t = [torch.from_numpy(x) for x in (q, k, v, qp, kp, do)]
+    out, lse = ops.flash_attention(*t[:5], **kw)
+    return ops.flash_attention_bwd(*t[:5], out, lse, t[5], **kw)
+
+
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_bwd_plain_matches_reference_vjp(name, J):
+    b, sq, sk, h, kv, hd, q0, tail, window, softcap = BWD_CASES[name]
+    q, k, v, qp, kp = _case(21, b, sq, sk, h, kv, hd, q0=q0, tail=tail)
+    do = _dout(22, q)
+    want = _reference_vjp(J, q, k, v, qp, kp, do, window, softcap)
+    got = _port_bwd(q, k, v, qp, kp, do, window=window, softcap=softcap)
+    for g, w, shape in zip(got, want, (q.shape, k.shape, v.shape),
+                           strict=True):
+        assert g.shape == shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5)
+    if name == "rows_see_nothing":          # queries at -3 .. 2 over keys
+        assert not got[0][:, :3].any()      # 0 .. 19: the first 3 see none
+
+
+def test_bwd_plain_bf16_matches_reference_bf16(J):
+    """bf16 operands: the same bf16 products (dout * out, p and ds rounded
+    before their products) with float32 sums in another order; each query
+    head's dk / dv is rounded to bf16 before the group sum in both.  The
+    gradients differ by a few bf16 roundings of values of size ~|g|:
+    within 2^-6 of the largest entry of each."""
+    import ml_dtypes
+    b, sq, sk, h, kv, hd = 2, 40, 40, 4, 2, 16
+    q, k, v, qp, kp = _case(23, b, sq, sk, h, kv, hd,
+                            dtype=ml_dtypes.bfloat16)
+    do = _dout(24, q.astype(np.float32)).astype(ml_dtypes.bfloat16)
+    want = _reference_vjp(J, q, k, v, qp, kp, do, 0, 0.0)
+    bf = lambda x: torch.from_numpy(x.view(np.int16)).view(  # noqa: E731
+        torch.bfloat16)
+    tq, tk, tv, tdo = (bf(x) for x in (q, k, v, do))
+    qp_t, kp_t = torch.from_numpy(qp), torch.from_numpy(kp)
+    out, lse = ops.flash_attention(tq, tk, tv, qp_t, kp_t)
+    got = ops.flash_attention_bwd(tq, tk, tv, qp_t, kp_t, out, lse, tdo)
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == torch.bfloat16
+        w = w.astype(np.float32)
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=2.0 ** -6 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (13, 0.0), (0, 3.0)])
+def test_bwd_plain_matches_unfused_grad(window, softcap, J):
+    """The same gradients as jax.grad through the unfused jnp path."""
+    import jax
+    q, k, v, qp, kp = _case(25, 2, 50, 50, 4, 2, 16)
+    do = _dout(26, q)
+    jnp, rep = J.jnp, 2
+
+    def loss(q, k, v):
+        out = J.layers._flash_attend(
+            q, jnp.repeat(k, rep, axis=2), jnp.repeat(v, rep, axis=2),
+            jnp.asarray(qp), jnp.asarray(kp), sliding_window=window,
+            softcap=softcap)
+        return jnp.sum(out * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x)
+                                               for x in (q, k, v)))
+    got = _port_bwd(q, k, v, qp, kp, do, window=window, softcap=softcap)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-5)
+
+
+def _dense_attention(q, k, v, qp, kp, window=0, softcap=0.0):
+    """Attention as one masked softmax over the repeated heads, for
+    autograd to differentiate."""
+    rep = q.shape[2] // k.shape[2]
+    kr, vr = (x.repeat_interleave(rep, 2) for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kr) / np.sqrt(q.shape[-1])
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    keep = qp[:, None, :, None] >= kp[:, None, None, :]
+    if window > 0:
+        keep &= qp[:, None, :, None] - kp[:, None, None, :] < window
+    p = torch.softmax(torch.where(keep, s, -torch.inf), -1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vr)
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (5, 0.0), (0, 2.0)])
+def test_fused_attention_function_matches_autograd(window, softcap):
+    from repro_torch.models import layers as TL
+    q, k, v, qp, kp = (torch.from_numpy(x) for x in _case(
+        27, 2, 24, 24, 4, 2, 16))
+    do = torch.from_numpy(_dout(28, q.numpy()))
+    grads = []
+    for fn in (lambda *a: TL.fused_attention(window, softcap, *a, qp, kp),
+               lambda *a: _dense_attention(*a, qp, kp, window, softcap)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves)
+        grads.append(torch.autograd.grad(out, leaves, do))
+        grads[-1] = (*grads[-1], out.detach())
+    for g, w in zip(*grads, strict=True):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5)
+
+
+def test_fused_attention_gradcheck_float64():
+    """float64 end to end (the plain twins sum in float64 there), a window
+    and a softcap, G = 2: gradcheck's finite differences agree."""
+    from repro_torch.models import layers as TL
+    q, k, v, qp, kp = (torch.from_numpy(x) for x in _case(
+        29, 1, 6, 6, 2, 1, 8, dtype=np.float64))
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    assert torch.autograd.gradcheck(
+        lambda *a: TL.fused_attention(4, 3.0, *a, qp, kp), leaves)
+
+
+def test_bwd_wrapper_wants_cuda_tensors():
+    q, k, v, qp, kp = (torch.from_numpy(x) for x in _case(30, 1, 4, 6, 2, 1,
+                                                          16))
+    out, lse = FA.flash_attention_plain(q, k, v, qp, kp)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        FA.flash_attention_bwd_cuda(q, k, v, qp, kp, out.contiguous(), lse,
+                                    q)
+    with pytest.raises(ValueError, match="lse"):
+        ops.flash_attention_bwd(q, k, v, qp, kp, out, lse[:, :1], q)
+
+
+def test_grad_excess_catches_a_wrong_tile():
+    """The bf16 tolerance of the card checks (``grad_excess``): the plain
+    twin passes against itself, a gradient with one wrong 64-key tile of
+    dv fails."""
+    q, k, v, qp, kp = (torch.from_numpy(x) for x in _case(
+        31, 1, 128, 128, 4, 2, 16))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(0)
+                     ).to(torch.bfloat16)
+    out, lse = FA.flash_attention_plain(q, k, v, qp, kp)
+    plain = FA.flash_attention_bwd_plain(q, k, v, qp, kp, out, lse, do)
+    exact = FA.flash_attention_bwd_plain(
+        *(x.double() for x in (q, k, v)), qp, kp, out.double(), lse.double(),
+        do.double())
+    for g, e in zip(plain, exact, strict=True):
+        assert FA.grad_excess(g, g, e) == 0.5
+    wrong = plain[2].clone()
+    wrong[:, 64:] = 0
+    assert FA.grad_excess(wrong, plain[2], exact[2]) > 1.0
+
+
+# ---------------------------------------------------------------------------
+# On the card: the backward kernel == its plain twin
+# ---------------------------------------------------------------------------
+#: (B, Sq, Sk, H, KV, hd, q0, sentinel tail, window, softcap)
+BWD_CARD_CASES = (
+    (2, 64, 64, 4, 4, 16, 0, 0, 0, 0.0),           # G = 1, one tile
+    (2, 100, 300, 8, 2, 64, 200, 37, 37, 30.0),    # ragged, window, softcap
+    (1, 130, 200, 4, 4, 128, 70, 17, 0, 5.0),      # hd 128
+    (3, 77, 1000, 6, 2, 80, 923, 17, 0, 0.0),      # G = 3, hd 80
+    (2, 256, 256, 32, 8, 80, 0, 0, 0, 0.0),        # the training heads
+    (1, 9, 1000, 3, 1, 16, 991, 0, 0, 0.0),        # G = 3, few queries
+    (2, 20, 45, 4, 2, 8, 25, 10, 5, 0.0),          # hd 8 (padded to 16)
+    (1, 3, 20, 2, 1, 16, -10, 0, 0, 0.0),          # rows before every key
+    (2, 517, 600, 16, 4, 64, 83, 90, 0, 0.0),      # ragged tiles, hd 64
+    (1, 200, 200, 8, 2, 32, 0, 0, 50, 0.0),        # hd 32, window
+)
+
+
+def _card_bwd_inputs(card, case, dt, seed):
+    q, k, v, qp, kp = _card_inputs(card, case, dt, dt, seed)
+    g = torch.Generator(device=card)
+    g.manual_seed(seed + 1000)
+    do = torch.randn(q.shape, generator=g, device=card).to(dt)
+    out, lse = FA.flash_attention_plain(q, k, v, qp, kp, window=case[8],
+                                        softcap=case[9])
+    return q, k, v, qp, kp, out.contiguous(), lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_flash_attention_bwd_kernel_matches_plain_on_card(dt, card):
+    """float32: within 1e-5 of the plain twin's largest entry per
+    gradient.  bf16: ``grad_excess`` <= 1 against a float64 evaluation
+    (the kernel's error at most twice the bf16 twin's own).  Two runs are
+    bit-identical (no atomics)."""
+    for i, case in enumerate(BWD_CARD_CASES):
+        args = _card_bwd_inputs(card, case, dt, i)
+        kw = dict(window=case[8], softcap=case[9])
+        before = FA.launches["flash_attention_bwd"]
+        got = ops.flash_attention_bwd(*args, **kw)
+        again = FA.flash_attention_bwd_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        assert FA.launches["flash_attention_bwd"] == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again,
+                                                     strict=True)), case
+        plain = FA.flash_attention_bwd_plain(*args, **kw)
+        if dt == torch.float32:
+            for g, w in zip(got, plain, strict=True):
+                err = float((g - w).abs().max())
+                assert err <= 1e-5 * max(float(w.abs().max()), 1e-30), \
+                    (case, err)
+        else:
+            exact = FA.flash_attention_bwd_plain(
+                *(x.double() if x.is_floating_point() else x for x in args),
+                **kw)
+            for g, w, e in zip(got, plain, exact, strict=True):
+                assert FA.grad_excess(g, w, e) <= 1.0, case
+
+
+@pytest.mark.cuda
+def test_fused_attention_trains_through_the_kernels_on_card(card):
+    """The autograd function on CUDA tensors: one forward and one backward
+    kernel launch, gradients equal to the plain path's on the same
+    inputs (float32, within 1e-5 of the largest entry)."""
+    from repro_torch.models import layers as TL
+    q, k, v, qp, kp = _card_inputs(card, (2, 150, 150, 8, 2, 80, 0, 0, 0,
+                                          0.0), torch.float32,
+                                   torch.float32, 7)
+    do = torch.randn(q.shape, device=card)
+    before = dict(FA.launches)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(TL.fused_attention(0, 0.0, *leaves, qp, kp),
+                              leaves, do)
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention"] == before["flash_attention"] + 1
+    assert FA.launches["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    cpu = [x.cpu().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(TL.fused_attention(0, 0.0, *cpu, qp.cpu(),
+                                                  kp.cpu()), cpu, do.cpu())
+    for g, w in zip(got, want, strict=True):
+        assert float((g.cpu() - w).abs().max()) <= \
+            1e-5 * float(w.abs().max())

@@ -380,7 +380,11 @@ def test_no_port_module_imports_jax_or_reference():
                  "repro_torch.analysis.verify", "repro_torch.analysis.timing",
                  "repro_torch.analysis.schedule",
                  "repro_torch.core.calibrate",
-                 "repro_torch.core.reliability", "repro_torch.core.fused"):
+                 "repro_torch.core.reliability", "repro_torch.core.fused",
+                 "repro_torch.train.optim", "repro_torch.train.compress",
+                 "repro_torch.train.step", "repro_torch.data.pipeline",
+                 "repro_torch.ckpt.checkpoint", "repro_torch.launch.train",
+                 "repro_torch.train_profile"):
         assert need in mods, need
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
