@@ -94,7 +94,12 @@ Phases:
     twin, each within twice the bf16 twin's own error against a float64
     evaluation (``grad_excess``); the float32 variant (window + softcap)
     within 1e-5 of plain; two runs bit-identical; times beside the bound
-    (the five products over the visible pairs) and SDPA's backward;
+    (the five products over the visible pairs) and SDPA's backward, with
+    each kernel's device time within a call; the same at hd 128 (2 x 2048,
+    32 / 8 heads: the ``hd128_*`` fields); a call with more work items than
+    resident blocks (B = 8) bit-identical on reruns and within the
+    tolerance on its first batch row; the one-pass kernel's ``[ptxas]``
+    lines at hd 64 / 80 / 128 with no spill bytes;
 15. the training path (``train_path``, after serving): qwen3-4b uncut
     (bf16 parameters, AdamW, remat="block", random weights from a seeded
     generator) for 3 steps of 2 x 2048 tokens from ``SyntheticLM`` (dedup
@@ -122,6 +127,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1756,7 +1762,91 @@ def _bwd_bound(q, k, q_pos, kv_pos) -> tuple[float, str, dict]:
 BWD_BF16_TOL = "max|kernel - f64| <= 2 max|plain_bf16 - f64|, per gradient"
 
 
-def check_flash_attention_bwd(FA) -> dict:
+def _bwd_library(q, k, v, do) -> dict:
+    """SDPA's backward as the yardstick (time only): ``torch.autograd.grad``
+    through ``scaled_dot_product_attention(is_causal=True)`` on K/V
+    repeated to q's heads, queued, with the L2 flushed and in a CUDA graph.
+    Its forward runs on a stream of its own: the backward runs there, and a
+    graph can capture it there."""
+    h, kvh = q.shape[2], k.shape[2]
+    row = {}
+    lib_stream = torch.cuda.Stream()
+    lib_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(lib_stream):
+        qs = q.transpose(1, 2).detach().requires_grad_()
+        ks, vs = (t.repeat_interleave(h // kvh, 2).transpose(1, 2)
+                  .contiguous().requires_grad_() for t in (k, v))
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True)
+        dos = do.transpose(1, 2)
+        library = lambda: torch.autograd.grad(  # noqa: E731
+            o, (qs, ks, vs), dos, retain_graph=True)
+        row["library_ms"] = round(_time_ms(library), 6)
+        row["library_cold_ms"] = round(_time_cold_ms(library), 6)
+        try:
+            row["library_graph_ms"] = round(_time_graph_ms(
+                library, stream=lib_stream), 6)
+        except RuntimeError as e:        # the backward would not capture
+            row["library_graph_ms"] = None
+            row["library_graph_error"] = str(e).splitlines()[0][:200]
+    torch.cuda.synchronize()
+    return row
+
+
+def _bwd_errors(FA, got, args) -> dict:
+    """Each gradient's error against a float64 evaluation beside the bf16
+    plain twin's; asserts ``grad_excess`` <= 1."""
+    plain = FA.flash_attention_bwd_plain(*args)
+    exact = FA.flash_attention_bwd_plain(
+        *(x.double() if x.is_floating_point() else x for x in args))
+    errors = {}
+    for name, g, w, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        errors[name] = {
+            "kernel_vs_f64": float((g.double() - e).abs().max()),
+            "plain_vs_f64": float((w.double() - e).abs().max()),
+            "kernel_vs_plain": float((g.float() - w.float()).abs().max()),
+            "excess": FA.grad_excess(g, w, e)}
+        assert errors[name]["excess"] <= 1.0, (name, errors[name])
+    return errors
+
+
+def _bwd_device_split(fn, reps: int = 5) -> dict:
+    """Device ms per call of each kernel a backward call launches (the
+    prologue and the main pass), from ``torch.profiler`` over ``reps``
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        name = re.search(r"bwd_\w+(<\d+>)?", e.key)
+        if t > 0 and name:
+            split[name.group(0)] = round(t / reps / 1e3, 6)
+    return split
+
+
+def _bwd_build_check(build) -> list[str]:
+    """The ``[ptxas]`` lines of the backward's instances; asserts 0 spill
+    bytes for the one-pass kernel at hd 64 / 80 / 128 (bwd_wg<D>).  A
+    library built by an earlier process left no log: nothing to check."""
+    log = build.BUILD_LOGS.get("flash_attention_bwd", "")
+    lines = _ptxas_summary(log)
+    if not log:
+        return ["(library built earlier: no ptxas log in this process)"]
+    wg = [x for x in lines if "bwd_wg" in x]
+    assert len(wg) == 3, wg
+    for x in wg:
+        assert " 0 bytes spill stores, 0 bytes spill loads" in x, x
+    return lines
+
+
+def check_flash_attention_bwd(FA, build) -> dict:
     """The attention backward kernel against its plain twin on the card.
 
     The training shape (bf16 q / k / v, B = 2, Sq = Sk = 2048, qwen3-4b's
@@ -1765,15 +1855,19 @@ def check_flash_attention_bwd(FA) -> dict:
     ``bf16_out_tolerance``, lse within 1e-4: the backward reads it), then
     dq, dk, dv from the kernel against the plain twin on the kernel's out
     and lse, each within ``BWD_BF16_TOL`` of a float64 evaluation of the
-    same function on the same inputs; two runs bit-identical.  The float32
-    variant on a small shape (B = 2, 300 queries at 200.. over 333 keys, a
-    sentinel tail, G = 4, hd 80, window 97, softcap 30): each gradient
-    within 1e-5 of the plain twin's largest entry.  Timed at the training
-    shape queued, in a CUDA graph and with the L2 flushed, beside the
-    bound, the plain twin and SDPA's backward (``torch.autograd.grad``
-    through ``scaled_dot_product_attention(is_causal=True)`` on K/V
-    repeated to the 32 heads: the same visible pairs; time only) on the
-    same three measures.  -> the kernel row."""
+    same function on the same inputs; two runs bit-identical.  hd 128 at
+    the training length (granite-3-8b's and minitron-8b's 32 / 8 heads of
+    128) alike.  A call with more work items than resident blocks (B = 8,
+    the training heads): two runs bit-identical, the first batch row within
+    ``BWD_BF16_TOL``.  The float32 variant on a small shape (B = 2, 300
+    queries at 200.. over 333 keys, a sentinel tail, G = 4, hd 80, window
+    97, softcap 30): each gradient within 1e-5 of the plain twin's largest
+    entry.  The one-pass kernel's ptxas lines show no spills.  Timed at the
+    training shape and at hd 128 queued, in a CUDA graph and with the L2
+    flushed, beside the bound, the plain twin and SDPA's backward on the
+    same three measures, with the device time of each kernel of a call.
+    -> the kernel row."""
+    ptxas = _bwd_build_check(build)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(9090)
     b, sq, h, kvh, hd = TRAIN_BATCH, TRAIN_SEQ, 32, 8, 80
@@ -1797,19 +1891,8 @@ def check_flash_attention_bwd(FA) -> dict:
     identical = all(torch.equal(x, y) for x, y in zip(got, again))
     assert identical, "two runs of the backward differ"
     del again
-    plain = FA.flash_attention_bwd_plain(*args)
-    exact = FA.flash_attention_bwd_plain(
-        *(x.double() if x.is_floating_point() else x for x in args))
+    errors = _bwd_errors(FA, got, args)
     names = ("dq", "dk", "dv")
-    errors = {}
-    for name, g, w, e in zip(names, got, plain, exact):
-        errors[name] = {
-            "kernel_vs_f64": float((g.double() - e).abs().max()),
-            "plain_vs_f64": float((w.double() - e).abs().max()),
-            "kernel_vs_plain": float((g.float() - w.float()).abs().max()),
-            "excess": FA.grad_excess(g, w, e)}
-        assert errors[name]["excess"] <= 1.0, (name, errors[name])
-    del plain, exact
     # the float32 variant: window, softcap, a sentinel tail, G = 4
     qp32 = (torch.arange(300, dtype=torch.int32, device="cuda") + 200
             ).repeat(2, 1)
@@ -1835,40 +1918,76 @@ def check_flash_attention_bwd(FA) -> dict:
            "cold_ms": round(_time_cold_ms(kernel), 6),
            "plain_ms": round(_time_ms(lambda: FA.flash_attention_bwd_plain(
                *args), reps=3), 6),
-           "bound_ms": round(bound, 6), "bound_by": by}
-    # the yardstick's forward on a stream of its own: its backward runs
-    # there, and a CUDA graph can capture it there
-    lib_stream = torch.cuda.Stream()
-    lib_stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(lib_stream):
-        qs = q.transpose(1, 2).detach().requires_grad_()
-        ks, vs = (t.repeat_interleave(h // kvh, 2).transpose(1, 2)
-                  .contiguous().requires_grad_() for t in (k, v))
-        o = torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True)
-        dos = do.transpose(1, 2)
-        library = lambda: torch.autograd.grad(  # noqa: E731
-            o, (qs, ks, vs), dos, retain_graph=True)
-        row["library_ms"] = round(_time_ms(library), 6)
-        row["library_cold_ms"] = round(_time_cold_ms(library), 6)
-        try:
-            row["library_graph_ms"] = round(_time_graph_ms(
-                library, stream=lib_stream), 6)
-        except RuntimeError as e:        # the backward would not capture
-            row["library_graph_ms"] = None
-            row["library_graph_error"] = str(e).splitlines()[0][:200]
-    torch.cuda.synchronize()
+           "bound_ms": round(bound, 6), "bound_by": by,
+           "device_split_ms": _bwd_device_split(kernel)}
+    row.update(_bwd_library(q, k, v, do))
     for how in ("", "graph_", "cold_"):
         lib = row[f"library_{how}ms"]
         row[f"{how}vs_library"] = (round(row[f"{how}ms"] / lib, 4)
                                    if lib else None)
+    del got, args, out, lse, q, k, v, do
+    torch.cuda.empty_cache()
+    # hd 128 at the training length
+    q, k, v, qp, kp = _attention_case(gen, b, sq, sq, h, kvh, 128,
+                                      torch.bfloat16, torch.bfloat16, pos,
+                                      pos)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out, lse = FA.flash_attention_cuda(q, k, v, qp, kp)
+    args = (q, k, v, qp, kp, out, lse, do)
+    got = FA.flash_attention_bwd_cuda(*args)
+    again = FA.flash_attention_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again)), \
+        "two runs of the hd-128 backward differ"
+    del again
+    hd128 = {"errors": _bwd_errors(FA, got, args)}
+    bound128, by128, count128 = _bwd_bound(q, k, qp, kp)
+    kernel = lambda: FA.flash_attention_bwd_cuda(*args)  # noqa: E731
+    hd128.update({"ms": round(_time_ms(kernel), 6),
+                  "graph_ms": round(_time_graph_ms(kernel), 6),
+                  "cold_ms": round(_time_cold_ms(kernel), 6),
+                  "bound_ms": round(bound128, 6), "bound_by": by128,
+                  "operations": count128["operations"],
+                  "device_split_ms": _bwd_device_split(kernel)})
+    hd128.update(_bwd_library(q, k, v, do))
+    for how in ("", "graph_", "cold_"):
+        lib = hd128[f"library_{how}ms"]
+        hd128[f"{how}vs_library"] = (round(hd128[f"{how}ms"] / lib, 4)
+                                     if lib else None)
+    del got, args, out, lse, q, k, v, do
+    torch.cuda.empty_cache()
+    # more work items than resident blocks: B = 8, the training heads
+    pos8 = torch.arange(sq, dtype=torch.int32, device="cuda").repeat(8, 1)
+    q, k, v, qp, kp = _attention_case(gen, 8, sq, sq, h, kvh, hd,
+                                      torch.bfloat16, torch.bfloat16, pos8,
+                                      pos8)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out, lse = FA.flash_attention_cuda(q, k, v, qp, kp)
+    args = (q, k, v, qp, kp, out, lse, do)
+    got = FA.flash_attention_bwd_cuda(*args)
+    again = FA.flash_attention_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again)), \
+        "two runs of the many-item backward differ"
+    del again
+    many = {"shape": {"B": 8, "Sq": sq, "H": h, "KV": kvh, "hd": hd},
+            "work_items": 8 * kvh * (sq // 128),
+            "first_row_errors": _bwd_errors(
+                FA, [g[:1] for g in got], tuple(x[:1] for x in args))}
+    del got, args, out, lse, q, k, v, do
+    torch.cuda.empty_cache()
     print(f"[flash_attention_bwd] training shape: forward out / tolerance "
           f"{fwd['out_vs_tol']:.4f}, lse |diff| {fwd['lse_max_abs_diff']}; "
           f"backward vs float64 {json.dumps(errors)}; float32 variant "
           f"rel {json.dumps(f32)}; two runs bit-identical", flush=True)
     print(f"[flash_attention_bwd] kernel / SDPA backward: queued "
           f"{row['vs_library']}, graph {row['graph_vs_library']}, cold "
-          f"{row['cold_vs_library']}", flush=True)
+          f"{row['cold_vs_library']}; device ms per kernel of a call "
+          f"{json.dumps(row['device_split_ms'])}", flush=True)
+    print(f"[flash_attention_bwd] hd 128 (2 x 2048, 32 / 8): "
+          f"{json.dumps(hd128)}", flush=True)
+    print(f"[flash_attention_bwd] many items: {json.dumps(many)}; two runs "
+          f"bit-identical", flush=True)
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/models/layers.py:266",
@@ -1877,6 +1996,8 @@ def check_flash_attention_bwd(FA) -> dict:
             "errors": errors, "tolerance": BWD_BF16_TOL,
             "f32_rel_err": f32, "forward_at_training_shape": fwd,
             "bit_identical": identical, **row, **count,
+            **{f"hd128_{k}": v for k, v in hd128.items()},
+            "many_items": many, "ptxas": ptxas,
             "shape": {"B": b, "Sq": sq, "Sk": sq, "H": h, "KV": kvh,
                       "hd": hd, "dtype": "bfloat16", "causal": True}}
 
@@ -2153,7 +2274,7 @@ def main() -> int:
               f"{r['library_ms']} ms (cold {r.get('library_cold_ms')}), "
               f"bound {r['bound_ms']} ms ({r['bound_by']}) at {r['shape']}",
               flush=True)
-    bwd_row = check_flash_attention_bwd(FA)
+    bwd_row = check_flash_attention_bwd(FA, build)
     print(f"[flash_attention_bwd] kernel {bwd_row['ms']} ms (graph "
           f"{bwd_row['graph_ms']}, cold {bwd_row['cold_ms']}), plain "
           f"{bwd_row['plain_ms']} ms, SDPA backward {bwd_row['library_ms']} "

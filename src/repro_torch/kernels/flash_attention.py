@@ -525,24 +525,34 @@ def grad_excess(got, plain, exact, mult: float = 2.0) -> float:
 _BWD_LIB = None
 
 
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the backward library's C signatures on ``lib``."""
+    lib.flash_attention_bwd.argtypes = [_VP] * 12 + [_INT] * 7 + [
+        _F, _F, _INT, _INT, _VP]
+    lib.flash_attention_bwd.restype = ctypes.c_int
+    lib.flash_attention_bwd_workspace.argtypes = [_INT] * 7
+    lib.flash_attention_bwd_workspace.restype = ctypes.c_longlong
+    return lib
+
+
 def _bwd_lib():
     global _BWD_LIB
     if _BWD_LIB is None:
         from . import build
-        lib = build.load("flash_attention_bwd")
-        lib.flash_attention_bwd.argtypes = [_VP] * 12 + [_INT] * 7 + [
-            _F, _F, _INT, _INT, _VP]
-        lib.flash_attention_bwd.restype = ctypes.c_int
-        _BWD_LIB = lib
+        _BWD_LIB = bind_bwd(build.load("flash_attention_bwd"))
     return _BWD_LIB
 
 
 def flash_attention_bwd_cuda(q, k, v, q_pos, kv_pos, out, lse, dout, *,
                              window: int = 0, softcap: float = 0.0):
-    """Launch the backward (three kernels, one host call) on the current
+    """Launch the backward (one host call: ``bwd_prep`` and the one-pass
+    ``bwd_wg`` for bf16 at hd > 32, else three kernels) on the current
     stream; -> (dq, dk, dv) as :func:`flash_attention_bwd_plain`.  q, k, v,
     out and dout must share one type (bf16 or float32), lse is float32, hd
-    a multiple of 8 up to 128; anything else raises."""
+    a multiple of 8 up to 128; anything else raises.  The float32
+    workspace (the kernel sizes it: delta, or at bf16 the dQ sums
+    ``(B, H, Sq, hd)`` padded to whole tiles, their counters and the tile
+    ranges) is allocated here, per call."""
     _check(q, k, v, q_pos, kv_pos)
     _check_bwd(q, out, lse, dout)
     if len({q.dtype, k.dtype, v.dtype, out.dtype, dout.dtype}) != 1 \
@@ -562,14 +572,17 @@ def flash_attention_bwd_cuda(q, k, v, q_pos, kv_pos, out, lse, dout, *,
     if b * sq * h == 0:                  # no query: no gradient anywhere
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib, bf16 = _bwd_lib(), int(q.dtype == torch.bfloat16)
+    work = torch.empty(lib.flash_attention_bwd_workspace(b, sq, sk, h, kvh,
+                                                         hd, bf16),
+                       dtype=torch.float32, device=q.device)
     idx = q.get_device()
-    err = _bwd_lib().flash_attention_bwd(
+    err = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         kv_pos.data_ptr(), out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
+        work.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
         sk, h, kvh, hd, int(window), 1.0 / math.sqrt(hd), float(softcap),
-        int(q.dtype == torch.bfloat16), idx, _stream(idx))
+        bf16, idx, _stream(idx))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")

@@ -32,7 +32,8 @@ from .mc_profile import measure
 ARCH, BATCH, SEQ, REPS = "qwen3-4b", 2, 2048, 3
 
 #: substrings of kernel names, by kind (the first that matches)
-KINDS = (("attention_bwd", ("bwd_dkdv", "bwd_dq", "bwd_delta")),
+KINDS = (("attention_bwd", ("bwd_wg", "bwd_prep", "bwd_dkdv", "bwd_dq",
+                            "bwd_delta")),
          ("attention_fwd", ("flash_fwd", "flash_combine")),
          ("matmul", ("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet")))
 

@@ -630,6 +630,153 @@ def test_grad_excess_catches_a_wrong_tile():
 
 
 # ---------------------------------------------------------------------------
+# A CPU model of the card backward's order of sums (bf16, hd 33..128)
+# ---------------------------------------------------------------------------
+def _key_tile_range(kp, lo, hi):
+    """(smallest, largest) position of keys [lo, hi) of a position row,
+    the kernel's ``PAD_POS`` (``SENTINEL``) past its end."""
+    p = kp[lo:hi].tolist() + [SENTINEL] * max(0, hi - kp.numel())
+    return min(p), max(p)
+
+
+def _tiles_see(kr, qr, window):
+    """The kernel's tile skip: may some query in ``qr`` see a key in
+    ``kr``?"""
+    (kmin, kmax), (qmin, qmax) = kr, qr
+    if kmin > kmax or qmin > qmax or kmin > qmax:
+        return False
+    return not (window > 0 and kmax <= qmin - window)
+
+
+def _bwd_tiled_model(q, k, v, qp, kp, out, lse, do, *, window=0,
+                     softcap=0.0, key_tile=128):
+    """The order of ``bwd_wg``'s sums, on the CPU: work items (batch, kv
+    head, ``key_tile`` keys) walk the 64-query tiles some query of which
+    may see some key of the item, the last tile first, the group's G query
+    heads inner; dK and dV of the item summed in float32 in that order and
+    rounded once; each step's dQ partial dS . K (float32) added into a
+    float32 sum per (batch, head, query tile) in ascending key-tile order,
+    then scaled and rounded once.  p and dS are rounded to q's type before
+    their products, as in the kernel."""
+    cdt = q.dtype
+    f = torch.float64 if cdt == torch.float64 else torch.float32
+    b_, sq, h_, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    grp, scale, bq = h_ // kvh, 1.0 / np.sqrt(hd), 64
+    delta = (do * out).to(f).sum(-1)                      # (B, Sq, H)
+    kf, vf = k.to(cdt).to(f), v.to(cdt).to(f)
+    qf, dof = q.to(f), do.to(f)
+    dk, dv = torch.zeros(k.shape, dtype=f), torch.zeros(v.shape, dtype=f)
+    parts = {}                   # (b, h, query tile) -> [(key tile, part)]
+    n_qt, n_kt = -(-sq // bq), -(-sk // key_tile)
+    for b in range(b_):
+        qr = [(int(qp[b, i * bq:(i + 1) * bq].min()),
+               int(qp[b, i * bq:(i + 1) * bq].max())) for i in range(n_qt)]
+        for kh in range(kvh):
+            for jt in range(n_kt):
+                ks = slice(jt * key_tile, min(sk, (jt + 1) * key_tile))
+                kr = _key_tile_range(kp[b], ks.start, ks.start + key_tile)
+                acc_k = torch.zeros((ks.stop - ks.start, hd), dtype=f)
+                acc_v = torch.zeros_like(acc_k)
+                for i in reversed(range(n_qt)):
+                    if not _tiles_see(kr, qr[i], window):
+                        continue
+                    qs = slice(i * bq, min(sq, (i + 1) * bq))
+                    keep = qp[b, qs, None] >= kp[b, None, ks]
+                    if window > 0:
+                        keep &= qp[b, qs, None] - kp[b, None, ks] < window
+                    for g in range(grp):
+                        hh = kh * grp + g
+                        s = qf[b, qs, hh] @ kf[b, ks, kh].T * scale
+                        dsm = 1.0
+                        if softcap > 0.0:
+                            t = torch.tanh(s / softcap)
+                            s, dsm = softcap * t, 1.0 - t * t
+                        p = torch.where(keep, torch.exp(
+                            s - lse[b, hh, qs, None].to(f)), 0.0)
+                        dp = dof[b, qs, hh] @ vf[b, ks, kh].T
+                        ds = p * (dp - delta[b, qs, hh, None]) * dsm
+                        p, ds = p.to(cdt).to(f), ds.to(cdt).to(f)
+                        acc_v += p.T @ dof[b, qs, hh]
+                        acc_k += ds.T @ qf[b, qs, hh]
+                        parts.setdefault((b, hh, i), []).append(
+                            (jt, ds @ kf[b, ks, kh]))
+                dk[b, ks, kh] = acc_k * scale
+                dv[b, ks, kh] = acc_v
+    dq = torch.zeros(q.shape, dtype=f)
+    for (b, hh, i), ps in parts.items():
+        acc = torch.zeros_like(ps[0][1])
+        for _jt, part in sorted(ps, key=lambda x: x[0]):
+            acc = acc + part
+        dq[b, i * bq:i * bq + acc.shape[0], hh] = acc * scale
+    return dq.to(cdt), dk.to(k.dtype), dv.to(v.dtype)
+
+
+#: BWD_CASES, and shapes with several query tiles and key tiles: Sk not a
+#: multiple of either key tile, windows starting inside a tile
+MODEL_CASES = {
+    **BWD_CASES,
+    "tiles_window": (1, 200, 200, 4, 2, 16, 0, 0, 70, 0.0),
+    "tiles_ragged_sentinel": (2, 130, 300, 4, 1, 8, 170, 20, 0, 0.0),
+    "tiles_window_softcap": (1, 150, 330, 2, 2, 16, 180, 0, 100, 4.0),
+}
+
+
+@pytest.mark.parametrize("key_tile", [64, 128])
+@pytest.mark.parametrize("name", sorted(MODEL_CASES))
+def test_bwd_tiled_model_matches_reference_vjp(name, key_tile, J):
+    """float32: the card kernel's order of sums gives the reference's
+    gradients within 1e-5."""
+    b, sq, sk, h, kv, hd, q0, tail, window, softcap = MODEL_CASES[name]
+    q, k, v, qp, kp = _case(41, b, sq, sk, h, kv, hd, q0=q0, tail=tail)
+    do = _dout(42, q)
+    want = _reference_vjp(J, q, k, v, qp, kp, do, window, softcap)
+    t = [torch.from_numpy(x) for x in (q, k, v, qp, kp, do)]
+    out, lse = FA.flash_attention_plain(*t[:5], window=window,
+                                        softcap=softcap)
+    got = _bwd_tiled_model(*t[:5], out, lse, t[5], window=window,
+                           softcap=softcap, key_tile=key_tile)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("key_tile", [64, 128])
+@pytest.mark.parametrize("name", ["tiles_window", "tiles_ragged_sentinel",
+                                  "tiles_window_softcap"])
+def test_bwd_tiled_model_bf16_within_the_card_tolerance(name, key_tile):
+    """bf16: the model's gradients meet the card check's tolerance
+    (``grad_excess`` <= 1 against a float64 evaluation, next to the bf16
+    plain twin)."""
+    b, sq, sk, h, kv, hd, q0, tail, window, softcap = MODEL_CASES[name]
+    x = [torch.from_numpy(a) for a in _case(43, b, sq, sk, h, kv, hd, q0=q0,
+                                            tail=tail)]
+    q, k, v = (a.to(torch.bfloat16) for a in x[:3])
+    qp, kp = x[3], x[4]
+    do = torch.from_numpy(_dout(44, x[0].numpy())).to(torch.bfloat16)
+    kw = dict(window=window, softcap=softcap)
+    out, lse = FA.flash_attention_plain(q, k, v, qp, kp, **kw)
+    args = (q, k, v, qp, kp, out, lse, do)
+    got = _bwd_tiled_model(*args, **kw, key_tile=key_tile)
+    plain = FA.flash_attention_bwd_plain(*args, **kw)
+    exact = FA.flash_attention_bwd_plain(
+        *(a.double() if a.is_floating_point() else a for a in args), **kw)
+    for g, w, e in zip(got, plain, exact, strict=True):
+        assert g.dtype == torch.bfloat16
+        assert FA.grad_excess(g, w, e) <= 1.0
+
+
+def test_bwd_ablation_edits_match_the_kernel_source():
+    """``python -m repro_torch.bwd_ablation`` builds copies of the backward
+    source with parts taken out by text edits: every edit still finds its
+    line, so a change to the kernel cannot silently void the tool."""
+    from repro_torch import bwd_ablation
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    for name, edits in bwd_ablation.VARIANTS.items():
+        for old, _new in edits:
+            assert old in src, (name, old)
+
+
+# ---------------------------------------------------------------------------
 # On the card: the backward kernel == its plain twin
 # ---------------------------------------------------------------------------
 #: (B, Sq, Sk, H, KV, hd, q0, sentinel tail, window, softcap)
@@ -644,6 +791,11 @@ BWD_CARD_CASES = (
     (1, 3, 20, 2, 1, 16, -10, 0, 0, 0.0),          # rows before every key
     (2, 517, 600, 16, 4, 64, 83, 90, 0, 0.0),      # ragged tiles, hd 64
     (1, 200, 200, 8, 2, 32, 0, 0, 50, 0.0),        # hd 32, window
+    (2, 1024, 1024, 32, 8, 128, 0, 0, 0, 0.0),     # hd 128, the 8b heads
+    (1, 512, 512, 24, 24, 64, 0, 0, 0, 0.0),       # MHA (G = 1), hd 64
+    (1, 1024, 1024, 8, 2, 64, 0, 0, 300, 0.0),     # a window cutting tiles
+    # more work items (8 x 4 kv heads x 8 key tiles) than resident blocks
+    (8, 1024, 1024, 8, 4, 80, 0, 0, 0, 0.0),
 )
 
 
@@ -663,7 +815,9 @@ def test_flash_attention_bwd_kernel_matches_plain_on_card(dt, card):
     """float32: within 1e-5 of the plain twin's largest entry per
     gradient.  bf16: ``grad_excess`` <= 1 against a float64 evaluation
     (the kernel's error at most twice the bf16 twin's own).  Two runs are
-    bit-identical (no atomics)."""
+    bit-identical (no floating-point atomics; the one-pass kernel's dQ sums
+    run in a fixed order, also when work items outnumber resident
+    blocks)."""
     for i, case in enumerate(BWD_CARD_CASES):
         args = _card_bwd_inputs(card, case, dt, i)
         kw = dict(window=case[8], softcap=case[9])
