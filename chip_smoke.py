@@ -23,7 +23,9 @@ through its entry point.  The fourth serves the decoder LM: the uncut
 ``configs/qwen3_4b.py`` (36 layers, d_model 2560, 32 / 8 heads of 80,
 vocab 151936; random bf16 weights from a seeded generator) behind
 ``ServeEngine`` with four slots of 4096 tokens, every layer's attention on
-the hand-written ``flash_attention`` kernel.
+the hand-written ``flash_attention`` kernel; then the MoE, hybrid and SSM
+families at full width behind the same engine, the cross-attention VLM and
+the audio decoder.
 Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
@@ -113,7 +115,25 @@ Phases:
     step card (the kernels) against CPU (the plain twins) — the
     parameters on the CPU's gradients, the free-running card's losses —
     and a resume through ``CheckpointManager`` bit-equal to the
-    uninterrupted run.
+    uninterrupted run;
+17. the other families (``arch_serve_path``, after ``serve_path``):
+    qwen2-moe-a2.7b (MoE, 14.3·10⁹ parameters), hymba-1.5b (hybrid
+    attention + SSM, a 2048-key window) and mamba2-780m (SSM) uncut in
+    bf16 behind ``ServeEngine`` (4 slots x 4096, the float32 cache; hymba's
+    ring 2048 slots): 6 requests of 16 new tokens (one at temperature 1),
+    ``n_layers`` attention launches per prefill and decode step (none for
+    mamba2), the prefill logits against ``forward``, the greedy agreement
+    with a teacher-forced ``forward``, walls, tok/s, decode ms per step
+    (qwen2-moe's beside its bytes floor) and peak bytes; each family cut
+    to 2 layers in float32, card against CPU (≤ 1e-4); llama-3.2-vision-90b
+    cut to 10 layers (every width kept): ``forward`` with 1024 image
+    embeddings over a 512-token prompt, then ``decode_step`` with them,
+    teacher-forced against ``forward``, the cross blocks launching the
+    kernel, and its float32 2-layer (one self, one cross block) card-vs-CPU
+    check; musicgen-medium uncut: one ``forward`` from frame embeddings.
+    Phase 3 holds the attention kernel to its plain version at these
+    families' shapes too (hymba's prefill and decode, qwen2-moe's hd 128
+    MHA, the VLM's non-causal cross-attention over 1024 keys).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -163,6 +183,25 @@ KERNEL_SOURCES = ("senseamp", "bitwise", "bitserial", "popcount_gemm",
 SERVE_ARCH, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = "qwen3-4b", 4, 4096, 32
 #: prompt lengths are drawn from this range (numpy default_rng(0))
 SERVE_PROMPTS = (256, 2048)
+#: the other families served at full width after qwen3-4b (their configs
+#: in src/repro/configs, uncut, bf16), behind the same engine: requests
+#: (the last at temperature 1) and new tokens each
+ARCH_SERVE, ARCH_REQUESTS, ARCH_NEW = (
+    "qwen2-moe-a2.7b", "hymba-1.5b", "mamba2-780m"), 6, 16
+#: hymba-1.5b's sliding window: its KV ring's slots
+HYMBA_WINDOW = 2048
+#: the attention kernel's shapes of those families (check_flash_attention)
+ARCH_SHAPES = ("hymba_prefill", "hymba_decode", "moe_prefill", "moe_decode",
+               "vlm_cross")
+#: the VLM (src/repro/configs/llama_3_2_vision_90b.py) cut to 10 layers —
+#: 2 super-blocks of 4 self blocks and 1 cross block, every width kept —
+#: its prompt and teacher-forced decode steps
+VLM_ARCH, VLM_LAYERS, VLM_PROMPT, VLM_STEPS = "llama-3.2-vision-90b", 10, \
+    512, 8
+#: the audio decoder at full width, fed frame embeddings of this length
+AUDIO_ARCH, AUDIO_FRAMES = "musicgen-medium", 1024
+#: the float32 card-vs-CPU check of each family: layers, prompt
+ARCH_F32_LAYERS, ARCH_F32_SEQ = 2, 256
 #: the trained model (src/repro/configs/qwen3_4b.py, uncut: AdamW,
 #: remat="block", bf16 parameters) and its batch and steps
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3-4b", 2, 2048, 3
@@ -1309,7 +1348,8 @@ def _attention_case(gen, b, sq, sk, h, kv, hd, qdt, kvdt, q_pos, kv_pos):
     return q, k, v, q_pos.int().contiguous(), kv_pos.int().contiguous()
 
 
-def _attention_bound(q, k, q_pos, kv_pos) -> tuple[float, str, dict]:
+def _attention_bound(q, k, q_pos, kv_pos, window: int = 0
+                     ) -> tuple[float, str, dict]:
     """Least time (ms) for these inputs: operations 4·H·(visible pairs)·hd
     at the dense rate of q's type (bf16 tensor cores, else float32), bytes
     = q, out, lse and the positions once plus each K/V row that some query
@@ -1317,6 +1357,8 @@ def _attention_bound(q, k, q_pos, kv_pos) -> tuple[float, str, dict]:
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     keep = q_pos[:, :, None] >= kv_pos[:, None, :]          # (B, Sq, Sk)
+    if window:
+        keep &= q_pos[:, :, None] - kv_pos[:, None, :] < window
     pairs = int(keep.sum()) * h
     rows = int(keep.any(1).sum())
     nops = 4 * pairs * hd
@@ -1426,6 +1468,27 @@ def check_flash_attention(FA) -> tuple[dict, dict]:
     shapes = {"prefill": (1, 2048, sk, h, kvh, hd, pre_q, pre_kv, 0, 0.0),
               "decode": (4, 1, sk, h, kvh, hd, slot_pos[:, None], dec_kv,
                          0, 0.0)}
+    # the other served families' shapes: hymba-1.5b (hd 64, 25 / 5 heads,
+    # a 2048-key window over its 2048-slot ring; one decode slot past the
+    # wrap), qwen2-moe-a2.7b (hd 128, 16 / 16 heads: its prefill, and its
+    # decode over the engine's 4 x 4096 slots on the split path) and the
+    # VLM's
+    # non-causal cross-attention (1024 image keys, hd 128, 64 / 8 heads)
+    win = HYMBA_WINDOW
+    ring = torch.arange(win, device="cuda")
+    hy_q = torch.tensor([win + 15, 1800, 1200, 600], device="cuda")[:, None]
+    hy_kv = torch.where(ring + win <= hy_q, ring + win,
+                        torch.where(ring <= hy_q, ring, SENTINEL))
+    shapes.update({
+        "hymba_prefill": (1, win, win, 25, 5, 64, ring[None], ring[None],
+                          win, 0.0),
+        "hymba_decode": (4, 1, win, 25, 5, 64, hy_q, hy_kv, win, 0.0),
+        "moe_prefill": (1, 2048, sk, 16, 16, 128, pre_q, pre_kv, 0, 0.0),
+        "moe_decode": (4, 1, sk, 16, 16, 128, slot_pos[:, None], dec_kv, 0,
+                       0.0),
+        "vlm_cross": (1, 512, 1024, 64, 8, 128,
+                      torch.ones((1, 512), device="cuda"),
+                      torch.zeros((1, 1024), device="cuda"), 0, 0.0)})
     small = []
     for b, sq, skk, hh, kk, d, q0, w, cap, tail in (
             (2, 100, 300, 8, 2, 64, 200, 37, 30.0, 17),
@@ -1478,20 +1541,25 @@ def check_flash_attention(FA) -> tuple[dict, dict]:
                     assert err <= tol[key], (name, key, err)
             if tag != "bf16" or name not in shapes:
                 continue
-            bound, by, count = _attention_bound(args[0], args[1], qp, kp)
+            bound, by, count = _attention_bound(args[0], args[1], qp, kp, w)
             q, k, v = args[:3]
             qs = q.transpose(1, 2)
             ks, vs = (t.to(torch.bfloat16).repeat_interleave(hh // kk, 2)
                       .transpose(1, 2) for t in (k, v))
-            if name == "prefill":
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            if name.endswith("prefill"):
+                # the prompt's own keys, causal (within hymba's window)
                 ks, vs = ks[:, :, :sq].contiguous(), vs[:, :, :sq].contiguous()
-                library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                    qs, ks, vs, is_causal=True)
+                library = lambda: sdpa(qs, ks, vs, is_causal=True)  # noqa: E731
+            elif name == "vlm_cross":
+                ks, vs = ks.contiguous(), vs.contiguous()
+                library = lambda: sdpa(qs, ks, vs)  # noqa: E731
             else:
                 ks, vs = ks.contiguous(), vs.contiguous()
                 mask = kp[:, None, None, :] <= qp[:, None, :, None]
-                library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                    qs, ks, vs, attn_mask=mask)
+                if w:
+                    mask &= qp[:, None, :, None] - kp[:, None, None, :] < w
+                library = lambda: sdpa(qs, ks, vs, attn_mask=mask)  # noqa: E731
             lib_err = float((library().transpose(1, 2).float()
                              - got[0].float()).abs().max())
             kernel = lambda: FA.flash_attention_cuda(  # noqa: E731
@@ -1510,7 +1578,8 @@ def check_flash_attention(FA) -> tuple[dict, dict]:
                 "library_max_abs_diff": lib_err, **count,
                 "n_split": split[0], "split_tiles": split[1],
                 "shape": {"B": b, "Sq": sq, "Sk": skk, "H": hh, "KV": kk,
-                          "hd": d, "q": "bfloat16", "kv": "float32"}}
+                          "hd": d, "window": w, "q": "bfloat16",
+                          "kv": "float32"}}
             for how in ("", "graph_", "cold_"):
                 row[f"{how}vs_library"] = round(
                     row[f"{how}ms"] / row[f"library_{how}ms"], 4)
@@ -1530,7 +1599,8 @@ def check_flash_attention(FA) -> tuple[dict, dict]:
              "replaces": "src/repro/kernels/flash_attention.py:81",
              "launches": None, "max_abs_err": max(worst.values()),
              "errors": worst, "bf16_out_vs_tol": out_vs_tol, **pre,
-             "decode_shape": timing["decode"]},
+             "decode_shape": timing["decode"],
+             "arch_shapes": {n: timing[n] for n in ARCH_SHAPES}},
             merge)
 
 
@@ -1709,15 +1779,7 @@ def serve_f32_parity(counts: Counts, params) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(SERVE_ARCH).replace(n_layers=2, param_dtype="float32",
                                          compute_dtype="float32")
-
-    def cut(tree, dev):
-        if isinstance(tree, dict):
-            return {k: cut(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [cut(v, dev) for v in tree[:cfg.n_layers]]
-        return tree.to(dev, torch.float32)
-
-    card, cpu = cut(params, "cuda"), cut(params, "cpu")
+    card, cpu = _cut(params, cfg, "cuda"), _cut(params, cfg, "cpu")
     tok = torch.from_numpy(np.random.default_rng(1).integers(
         2, cfg.vocab, (1, 256)))
     counts.reset()
@@ -1731,6 +1793,361 @@ def serve_f32_parity(counts: Counts, params) -> dict:
           f"{rel} of the largest logit", flush=True)
     assert rel <= 1e-4, rel
     return {"rel_max_abs_diff": rel}
+
+
+# ---------------------------------------------------------------------------
+# The other families: MoE, hybrid and SSM served, the VLM and the audio
+# decoder driven through forward / decode_step
+# ---------------------------------------------------------------------------
+def _padded(seq: list[int], chunk: int) -> torch.Tensor:
+    """(1, S) tokens right-padded with 0 to a multiple of ``chunk`` (the
+    SSD's chunk): every model here is causal, so the pads change no logit
+    at a real position."""
+    n = -(-len(seq) // chunk) * chunk
+    return torch.tensor([seq + [0] * (n - len(seq))], device="cuda")
+
+
+def _split_calls(FA, b: int, h: int, kvh: int, sk: int) -> int:
+    """1 if a one-query-per-row call of this shape takes the split path
+    (one merge launch beside it), else 0."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return int(FA.split_plan(b, 1, h, kvh, sk, sms)[0] > 1)
+
+
+def _serve_arch(counts: Counts, card: str, arch: str) -> tuple[dict, dict]:
+    """One family at full width behind ``ServeEngine`` (4 slots x 4096,
+    the float32 cache; hymba's window caps its ring at 2048 slots):
+    ``ARCH_REQUESTS`` requests of ``ARCH_NEW`` tokens, the last at
+    temperature 1; ``n_layers`` attention launches per prefill and per
+    decode step where the model has attention (none for mamba2), a merge
+    per layer per split decode step; the engine's prefill logits against
+    ``forward``'s; the greedy agreement with a teacher-forced ``forward``
+    (held for hymba and mamba2; printed only for the MoE, whose capacity
+    depends on the token count).  qwen2-moe's decode step is printed
+    beside its bytes floor: the reference's dispatch multiplies all 60
+    experts every step.  -> (numbers, parameters)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine, _prefill_fn
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    eng = ServeEngine(cfg, params, n_slots=SERVE_SLOTS,
+                      max_len=SERVE_MAX_LEN)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
+                        ARCH_REQUESTS)
+    prompts = [rng.integers(2, cfg.vocab, int(n)).tolist() for n in lens]
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new_tokens=ARCH_NEW,
+                   temperature=1.0 if i == len(prompts) - 1 else 0.0)
+    done = eng.run()
+    c = counts.read(f"serve_{arch}")
+    peak = torch.cuda.max_memory_allocated()
+    n_pre, n_dec = len(eng.prefill_s), eng._steps
+    attn = cfg.n_layers if cfg.block_type != "ssm" else 0
+    merges = attn * n_dec * (_split_calls(
+        FA, SERVE_SLOTS, cfg.n_heads, cfg.n_kv_heads,
+        eng.caches[0]["kv"]["k"].shape[1]) if attn else 0)
+    assert c["flash_attention"] == attn * (n_pre + n_dec), (c, n_pre, n_dec)
+    assert c["flash_attention_combine"] == merges, (c, merges)
+    assert sum(c.values()) == c["flash_attention"] \
+        + c["flash_attention_combine"], c
+    assert len(done) == ARCH_REQUESTS and all(
+        len(r.out_tokens) == ARCH_NEW for r in done), \
+        [len(r.out_tokens) for r in done]
+    wall = counts.wall_s[f"serve_{arch}"]
+    dec = sorted(eng.decode_s)
+    out = {"arch": arch, "params": n_params, "init_params_s": init_s,
+           "prompt_lens": [int(n) for n in lens], "prefills": n_pre,
+           "decode_steps": n_dec, "flash_attention_launches":
+           c["flash_attention"], "flash_attention_combine_launches":
+           c["flash_attention_combine"], "wall_s": wall,
+           "prefill_ms": [1e3 * x for x in eng.prefill_s],
+           "decode_ms_median": 1e3 * dec[len(dec) // 2],
+           "decode_ms_quartiles": [1e3 * dec[len(dec) // 4],
+                                   1e3 * dec[len(dec) // 2],
+                                   1e3 * dec[3 * len(dec) // 4]],
+           "decode_ms_range": [1e3 * dec[0], 1e3 * dec[-1]],
+           "decode_ms_mean": 1e3 * sum(dec) / len(dec),
+           "tokens": ARCH_REQUESTS * ARCH_NEW,
+           # over the whole wall: the prefills take most of it
+           "tokens_per_s": ARCH_REQUESTS * ARCH_NEW / wall,
+           "decode_tokens_per_s": (sum(len(r.out_tokens) - 1 for r in done)
+                                   / sum(dec)),
+           "peak_bytes": peak, "card": card}
+    if cfg.moe:
+        # every step reads every expert (the dispatch multiplies all E)
+        # and every other weight but the token embedding's
+        expert = cfg.n_layers * 3 * cfg.n_experts * cfg.d_model \
+            * cfg.d_expert * 2
+        other = 2 * (n_params - cfg.vocab * cfg.d_model) - expert
+        out["decode_floor_ms"] = (expert + other) / HBM_BYTES_PER_S * 1e3
+        out["decode_floor_bytes"] = {"experts": expert, "other": other}
+    # the engine's prefill logits == forward's at the last prompt position
+    # (a prompt cut to a multiple of the SSD chunk: forward takes no pads)
+    n = len(prompts[0]) // eng.chunk * eng.chunk
+    tok = torch.tensor([prompts[0][:n]], device="cuda")
+    fresh = T.init_caches(cfg, 1, SERVE_MAX_LEN, dtype=torch.float32)
+    got, _ = _prefill_fn(params, cfg, tok, torch.ones_like(tok, dtype=bool),
+                         fresh)
+    want = T.forward(params, cfg, {"tokens": tok})[:, -1]
+    rel = float((got - want).abs().max() / want.abs().max())
+    del fresh
+    assert rel <= 1e-3, rel
+    out["prefill_vs_forward_rel"] = rel
+    agree = total = 0
+    for r in done:
+        if r.temperature > 0:
+            continue
+        seq = r.prompt + r.out_tokens[:-1]
+        logits = T.forward(params, cfg, {"tokens": _padded(seq, eng.chunk)}
+                           )[0, len(r.prompt) - 1:len(seq)]
+        agree += int((logits.argmax(-1).cpu()
+                      == torch.tensor(r.out_tokens)).sum())
+        total += len(r.out_tokens)
+        del logits
+    out["greedy_agreement"] = agree / total
+    if cfg.moe:
+        del eng
+        torch.cuda.empty_cache()
+        out["no_drop"] = _moe_no_drop(cfg, params, prompts)
+    else:
+        assert agree / total >= 0.5, (agree, total)
+    print(f"[serve] {arch} full width ({n_params} parameters, bf16) on "
+          f"{card}: {n_pre} prefills + {n_dec} decode steps, "
+          f"{c['flash_attention']} flash_attention launches "
+          f"({c['flash_attention_combine']} merges), wall {wall} s, "
+          f"{out['tokens_per_s']} tok/s over the wall (prefills included); "
+          f"prefill ms {out['prefill_ms']} (prompts {out['prompt_lens']}); "
+          f"decode ms per step quartiles {out['decode_ms_quartiles']} over "
+          f"{n_dec} steps, range {out['decode_ms_range']}"
+          + (f" (bytes floor {out['decode_floor_ms']})" if cfg.moe else "")
+          + f"; peak {peak} B; prefill vs forward {rel}; greedy agreement "
+          f"{agree}/{total}", flush=True)
+    return out, params
+
+
+def _moe_no_drop(cfg, params, prompts) -> dict:
+    """The MoE's decode held as the other families' are, at a capacity
+    that drops no token (``capacity_factor = E / K``: every expert can take
+    every token), where the routing no longer depends on the token count:
+    the greedy requests served again behind a fresh ``ServeEngine`` (its
+    decode steps run the same program as before — at 4 tokens a step the
+    capacity is the floor of 4 either way — only the prefills drop
+    nothing now), their tokens against a teacher-forced ``forward`` at
+    the same capacity factor, held ≥ 0.5 as hymba's and mamba2's are."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    nd = cfg.replace(capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    eng = ServeEngine(nd, params, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    for p in prompts[:-1]:
+        eng.submit(p, max_new_tokens=ARCH_NEW, temperature=0.0)
+    done = eng.run()
+    agree = total = 0
+    for r in done:
+        seq = r.prompt + r.out_tokens[:-1]
+        logits = T.forward(params, nd, {"tokens": torch.tensor(
+            [seq], device="cuda")})[0, len(r.prompt) - 1:]
+        agree += int((logits.argmax(-1).cpu()
+                      == torch.tensor(r.out_tokens)).sum())
+        total += len(r.out_tokens)
+        del logits
+    del eng
+    torch.cuda.empty_cache()
+    print(f"[serve] {cfg.name} at capacity factor {nd.capacity_factor} (no "
+          f"token dropped): greedy agreement with a teacher-forced forward "
+          f"{agree}/{total}", flush=True)
+    assert agree / total >= 0.5, (agree, total)
+    return {"capacity_factor": nd.capacity_factor, "greedy_agreement":
+            agree / total, "tokens": total}
+
+
+def _cut(tree, cfg, dev):
+    """The first layers of a parameter tree, as float32 on ``dev``: the
+    self blocks and cross blocks that ``cfg`` (the cut config) has."""
+    from repro_torch.models.transformer import n_cross_blocks
+    n_cross = n_cross_blocks(cfg)
+    keep = {"blocks": cfg.n_layers - n_cross, "cross_blocks": n_cross}
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node[:keep[key]]]
+        return node.to(dev, torch.float32)
+
+    return walk(tree)
+
+
+def _f32_parity(counts: Counts, arch: str, cfg, params) -> dict:
+    """The family's weights cut to ``ARCH_F32_LAYERS`` layers (the VLM:
+    one self and one cross block), float32 with TF32 off, one
+    ``ARCH_F32_SEQ``-token forward (the VLM with 1024 image embeddings):
+    the card (the kernel) against the CPU (the plain version), relative
+    max |Δlogits| ≤ 1e-4, as ``serve_f32_parity``."""
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = {"cross_attn_every": 2} if cfg.cross_attn_every else {}
+    cut = cfg.replace(n_layers=ARCH_F32_LAYERS, param_dtype="float32",
+                      compute_dtype="float32", **kw)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        2, cut.vocab, (1, ARCH_F32_SEQ)))}
+    if cut.cross_attn_every:
+        batch["image_embeds"] = torch.from_numpy(rng.normal(
+            0, 1, (1, cut.n_image_tokens, cut.d_model)).astype(np.float32))
+    card = _cut(params, cut, "cuda")
+    counts.reset()
+    got = T.forward(card, cut, {k: v.cuda() for k, v in batch.items()})
+    c = counts.read(f"f32_{arch}")
+    attn = 0 if cut.block_type == "ssm" else cut.n_layers
+    assert c["flash_attention"] == attn and sum(c.values()) == attn, c
+    got = got.cpu()
+    del card
+    want = T.forward(_cut(params, cut, "cpu"), cut, batch)
+    rel = float((got - want).abs().max() / want.abs().max())
+    print(f"[serve] {arch}: 2-layer float32 forward, card (kernel) vs CPU "
+          f"(plain): {rel} of the largest logit", flush=True)
+    assert rel <= 1e-4, rel
+    return {"rel_max_abs_diff": rel, "flash_attention_launches": attn}
+
+
+def _vlm(counts: Counts, card: str) -> dict:
+    """llama-3.2-vision-90b cut to ``VLM_LAYERS`` layers (2 super-blocks),
+    every width kept: ``forward`` over a 512-token prompt and its 8 next
+    tokens with 1024 image embeddings (10 launches: the 8 self blocks and
+    the 2 cross blocks), then ``decode_step`` with the image embeddings —
+    the prompt into the caches (one S = 512 call, which writes the block
+    at 0, as the reference's), then 8 teacher-forced steps — each step's
+    logits against ``forward``'s at its position (bf16: within 5e-2 of the
+    largest logit; a wrong cache or a skipped cross block moves them by
+    the logits' own size).  Then the float32 card-vs-CPU check."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+    cfg = get_config(VLM_ARCH).replace(n_layers=VLM_LAYERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    img = torch.randn((1, cfg.n_image_tokens, cfg.d_model), generator=gen,
+                      device="cuda")
+    s = VLM_PROMPT + VLM_STEPS
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        2, cfg.vocab, (1, s))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    full = T.forward(params, cfg, {"tokens": toks, "image_embeds": img})
+    c = counts.read("vlm_forward")
+    assert c["flash_attention"] == cfg.n_layers and \
+        sum(c.values()) == cfg.n_layers, c
+    fwd_s = counts.wall_s["vlm_forward"]
+    caches = T.init_caches(cfg, 1, 2 * VLM_PROMPT, dtype=torch.float32)
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")[None]
+    counts.reset()
+    _lg, caches = T.decode_step(params, cfg, toks[:, :VLM_PROMPT], caches,
+                                pos[:, :VLM_PROMPT], image_embeds=img)
+    steps, worst, agree = [], 0.0, 0
+    for t in range(VLM_PROMPT, s):
+        t1 = time.perf_counter()
+        # positions sliced from one row: most slices are not 16-byte
+        # aligned, and ``apply_attention`` realigns them for the kernel
+        got, caches = T.decode_step(params, cfg, toks[:, t:t + 1], caches,
+                                    pos[:, t:t + 1], image_embeds=img)
+        want = full[:, t]
+        rel = float((got[:, 0] - want).abs().max() / want.abs().max())
+        steps.append(1e3 * (time.perf_counter() - t1))
+        worst = max(worst, rel)
+        agree += int(got[0, 0].argmax() == want[0].argmax())
+    c = counts.read("vlm_decode")
+    merges = cfg.n_layers * VLM_STEPS * _split_calls(
+        FA, 1, cfg.n_heads, cfg.n_kv_heads, 2 * VLM_PROMPT)
+    assert c["flash_attention"] == cfg.n_layers * (1 + VLM_STEPS), c
+    assert c["flash_attention_combine"] == merges, (c, merges)
+    assert worst <= 5e-2, worst
+    out = {"arch": VLM_ARCH, "layers": cfg.n_layers, "params": n_params,
+           "image_tokens": cfg.n_image_tokens, "prompt": VLM_PROMPT,
+           "forward_s": fwd_s, "decode_ms": steps,
+           "decode_vs_forward_rel": worst,
+           "decode_argmax_agreement": agree / VLM_STEPS,
+           "peak_bytes": torch.cuda.max_memory_allocated(), "card": card}
+    del caches, full
+    out["f32"] = _f32_parity(counts, VLM_ARCH, cfg, params)
+    print(f"[vlm] {VLM_ARCH} cut to {cfg.n_layers} layers ({n_params} "
+          f"parameters, bf16) on {card}: forward over {s} tokens and "
+          f"{cfg.n_image_tokens} image embeddings {fwd_s} s; decode ms "
+          f"{steps}; decode vs forward {worst} of the largest logit, argmax "
+          f"{agree}/{VLM_STEPS}", flush=True)
+    return out
+
+
+def _audio(counts: Counts, card: str) -> dict:
+    """musicgen-medium at full width: one ``forward`` from
+    ``AUDIO_FRAMES`` frame embeddings (48 launches), finite logits of the
+    expected shape; fed the token embeddings of some tokens as
+    ``input_embeds`` it gives the token path's logits bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = get_config(AUDIO_ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    emb = torch.randn((1, AUDIO_FRAMES, cfg.d_model), generator=gen,
+                      device="cuda") * 0.02
+    toks = torch.zeros((1, AUDIO_FRAMES), dtype=torch.int64, device="cuda")
+    counts.reset()
+    logits = T.forward(params, cfg, {"tokens": toks, "input_embeds": emb})
+    c = counts.read("audio_forward")
+    assert c["flash_attention"] == cfg.n_layers and \
+        sum(c.values()) == cfg.n_layers, c
+    assert logits.shape == (1, AUDIO_FRAMES, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (1, 256))).cuda()
+    same = torch.equal(
+        T.forward(params, cfg, {"tokens": toks}),
+        T.forward(params, cfg, {"tokens": toks, "input_embeds": L.embed(
+            params["embed"], cfg, toks)}))
+    assert same
+    wall = counts.wall_s["audio_forward"]
+    print(f"[audio] {AUDIO_ARCH} full width ({n_params} parameters, bf16) "
+          f"on {card}: forward from {AUDIO_FRAMES} frame embeddings {wall} "
+          f"s, {c['flash_attention']} launches", flush=True)
+    return {"arch": AUDIO_ARCH, "params": n_params, "frames": AUDIO_FRAMES,
+            "forward_s": wall, "input_embeds_equal_token_path": same}
+
+
+def arch_serve_path(counts: Counts, card: str) -> dict:
+    """qwen2-moe-a2.7b, hymba-1.5b and mamba2-780m served at full width
+    (:func:`_serve_arch`), each with its float32 card-vs-CPU check; the
+    VLM cut to 10 layers (:func:`_vlm`); musicgen-medium's forward from
+    frame embeddings (:func:`_audio`).  Each model is freed before the
+    next is made."""
+    out = {}
+    for arch in ARCH_SERVE:
+        row, params = _serve_arch(counts, card, arch)
+        from repro_torch.configs import get_config
+        row["f32"] = _f32_parity(counts, arch, get_config(arch), params)
+        out[arch] = row
+        del params
+        torch.cuda.empty_cache()
+    out[VLM_ARCH] = _vlm(counts, card)
+    torch.cuda.empty_cache()
+    out[AUDIO_ARCH] = _audio(counts, card)
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2268,7 +2685,7 @@ def main() -> int:
           + json.dumps(bit_rows[-1]["down_shape"]), flush=True)
     fa_row, merge_row = check_flash_attention(FA)
     for tag, r in (("prefill", fa_row), ("decode", fa_row["decode_shape"]),
-                   ("merge", merge_row)):
+                   *fa_row["arch_shapes"].items(), ("merge", merge_row)):
         print(f"[flash_attention] {tag}: kernel {r['ms']} ms (cold "
               f"{r['cold_ms']}), plain {r['plain_ms']} ms, library "
               f"{r['library_ms']} ms (cold {r.get('library_cold_ms')}), "
@@ -2386,6 +2803,9 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     t0 = _phase("serve_path", t0, times)
+    print("[arch_serve] " + json.dumps(arch_serve_path(counts, card)),
+          flush=True)
+    t0 = _phase("arch_serve_path", t0, times)
 
     # ---- the decoder LM trained: full width, then float32 card vs CPU ----
     train_out = train_path(counts, card)

@@ -32,7 +32,8 @@ from .core.analog import AnalogParams
 from .core.simulator import BankSim, resolve_device
 from .models.config import ModelConfig, TrainConfig
 from .models.quant import BinaryLinear
-from .models.transformer import check_supported
+from .models.transformer import STACKED, n_cross_blocks
+from .train.optim import tree_leaves
 
 #: constructor settings of the bank, then its mutable state
 SETTINGS = ("module", "row_bits", "trials", "error_model", "temp_c",
@@ -119,21 +120,30 @@ def lm_params_from_numpy(params: dict, cfg: ModelConfig,
     """The port's decoder parameters on ``device`` from the reference's
     ``repro.models.transformer.init_params`` tree as numpy arrays
     (``jax.tree.map(np.asarray, params)``).  The reference stacks the
-    blocks on a leading layer axis (it initialises them with ``vmap``);
-    the port keeps one dict per layer.  Dense weights are ``(in, out)`` in
-    both, so nothing is transposed."""
-    check_supported(cfg)
+    blocks (and a VLM's cross blocks) on a leading layer axis (it
+    initialises them with ``vmap``); the port keeps one dict per layer.
+    Every subtree of a block comes along (attention, MoE with its (E, in,
+    out) expert weights, SSM, the hybrid's output norms).  Dense weights
+    are ``(in, out)`` in both, so nothing is transposed."""
     dev = resolve_device(device)
     conv = _map(lambda a: _tensor(a, dev),
-                {k: v for k, v in params.items() if k != "blocks"})
-    stacked = _map(lambda a: np.asarray(a), params["blocks"])
-    n = len(stacked["norm1"]["scale"])
-    if n != cfg.n_layers:
-        raise ValueError(f"the tree holds {n} blocks, the config "
-                         f"{cfg.n_layers}")
-    conv["blocks"] = [_map(lambda a, i=i: _tensor(a[i], dev), stacked)
-                      for i in range(n)]
+                {k: v for k, v in params.items() if k not in STACKED})
+    for key in STACKED:
+        if key in params:
+            conv[key] = _unstack(params[key], dev)
+    n_cross = n_cross_blocks(cfg)
+    want = {"blocks": cfg.n_layers - n_cross, "cross_blocks": n_cross}
+    for key, n in want.items():
+        if len(conv.get(key, ())) != n:
+            raise ValueError(f"the tree holds {len(conv.get(key, ()))} "
+                             f"{key}, the config {n}")
     return conv
+
+
+def _unstack(tree: dict, dev: torch.device) -> list[dict]:
+    stacked = _map(np.asarray, tree)
+    return [_map(lambda a, i=i: _tensor(a[i], dev), stacked)
+            for i in range(len(tree_leaves(stacked)[0]))]
 
 
 def train_state_from_numpy(state: dict, cfg: ModelConfig, tc: TrainConfig,

@@ -113,10 +113,13 @@ def _check(q, k, v, q_pos, kv_pos, f64: bool = False) -> None:
                          f"those alike; got {q.dtype}, {k.dtype}, {v.dtype}")
 
 
-def _partials_plain(q, k, v, q_pos, kv_pos, window, softcap):
+def _partials_plain(q, k, v, q_pos, kv_pos, window, softcap,
+                    extra_mask=None):
     """The online softmax over every key: -> float32 (float64 inputs:
     float64) m, l (B, KV, G, Sq) and acc (B, KV, G, Sq, hd),
-    unnormalized."""
+    unnormalized.  ``extra_mask`` (B, Sq, Sk) bool, True = attend: the
+    reference's unfused path (``_flash_attend_inner``), which keeps P in
+    float32 where the fused region rounds it to V's type."""
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     grp = h // kvh
@@ -134,6 +137,8 @@ def _partials_plain(q, k, v, q_pos, kv_pos, window, softcap):
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=PAD_POS)
+        if extra_mask is not None:
+            extra_mask = torch.nn.functional.pad(extra_mask, (0, pad))
     qf = q.to(adt).reshape(b, sq, kvh, grp, hd)
     qp = q_pos[:, None, None, :, None]
     m = torch.full((b, kvh, grp, sq), NEG, dtype=adt, device=q.device)
@@ -149,25 +154,32 @@ def _partials_plain(q, k, v, q_pos, kv_pos, window, softcap):
         keep = qp >= p_i
         if window > 0:
             keep &= qp - p_i < window
+        if extra_mask is not None:
+            keep &= extra_mask[:, None, None, :, sl]
         s = torch.where(keep, s, NEG)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         p = torch.where(keep, p, 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
+        if extra_mask is None:
+            p = p.to(v_i.dtype).to(adt)
         acc = acc * corr[..., None] + torch.einsum(
-            "bkgqc,bckd->bkgqd", p.to(v_i.dtype).to(adt), v_i.to(adt))
+            "bkgqc,bckd->bkgqd", p, v_i.to(adt))
         m = m_new
     return m, l, acc
 
 
 def flash_attention_plain(q, k, v, q_pos, kv_pos, *, window: int = 0,
-                          softcap: float = 0.0):
+                          softcap: float = 0.0, extra_mask=None):
     """Plain twin: -> (out (B, Sq, H, hd) in q's type, lse (B, H, Sq)),
-    float32 (float64 for float64 inputs)."""
+    float32 (float64 for float64 inputs).  With ``extra_mask`` (B, Sq,
+    Sk) it is the reference's unfused path, which the kernel does not
+    take (:func:`_partials_plain`)."""
     _check(q, k, v, q_pos, kv_pos, f64=True)
     b, sq, h, hd = q.shape
-    m, l, acc = _partials_plain(q, k, v, q_pos, kv_pos, window, softcap)
+    m, l, acc = _partials_plain(q, k, v, q_pos, kv_pos, window, softcap,
+                                extra_mask)
     out = acc / torch.clamp(l[..., None], min=1e-20)
     lse = m + torch.log(torch.clamp(l, min=1e-20))
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)

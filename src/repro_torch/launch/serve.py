@@ -1,7 +1,11 @@
 """Serving launcher of the port: batched prefill/decode with the slot engine.
 
+Every architecture whose engine the reference can run: attention, MoE,
+SSM, hybrid and the audio decoder (a cross-attention config raises, as
+``ServeEngine`` does: ROADMAP C-9).
+
 Usage (on the card; ``--device cpu`` runs the plain attention on the CPU):
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --smoke --requests 8 --max-new 16 --device cpu
 """
 from __future__ import annotations
@@ -42,7 +46,9 @@ def main(argv: list[str] | None = None) -> list:
     rng = np.random.default_rng(0)
     t0 = time.time()
     for _ in range(args.requests):
-        plen = int(rng.integers(4, 24))
+        # the reference's 4-23 tokens, cut to what the cache holds (a
+        # sliding window's ring: hymba's smoke config keeps 16 slots)
+        plen = int(rng.integers(4, min(24, (eng.max_prompt or 23) + 1)))
         prompt = rng.integers(2, cfg.vocab, plen).tolist()
         eng.submit(prompt, max_new_tokens=args.max_new,
                    temperature=args.temperature)

@@ -4,9 +4,8 @@ training loop's ``TrainConfig`` (a copy of ``repro.models.config``).
 One dataclass drives dense GQA transformers, MoE, SSM (Mamba2/SSD), hybrid
 (parallel attention+SSM), audio-token decoders and cross-attention VLM
 backbones.  Exact per-arch instantiations live in ``repro_torch.configs``.
-The port serves and trains ``block_type="attention"`` without MoE or
-cross-attention; ``fused_attention`` has no effect in the port (every
-attention runs the flash-attention kernels, forward and backward).
+``fused_attention`` has no effect in the port (every attention without
+``extra_mask`` runs the flash-attention kernels, forward and backward).
 """
 from __future__ import annotations
 

@@ -1,24 +1,31 @@
-"""Config-driven decoder of the port: ``repro.models.transformer`` for
-``block_type="attention"`` without MoE or cross-attention (others raise
-``NotImplementedError``, ROADMAP A-6), serving and training.
+"""Config-driven decoder of the port (``repro.models.transformer``): every
+architecture family of the reference — attention, MoE, SSM, hybrid
+(parallel attention + SSM), the audio decoder's ``input_embeds`` and the
+VLM's cross-attention blocks — for serving and training.
 
 Parameters are plain dicts as in the reference, with the blocks as a
 Python list (one dict per layer) where the reference stacks them on a
 leading layer axis for ``lax.scan``; the scan becomes a loop over layers.
-Caches are a list of per-layer ``{"kv": {"k", "v", "pos"}}`` dicts,
+A VLM's cross blocks are a second list, ``params["cross_blocks"]``, one per
+super-block of ``cross_attn_every − 1`` self blocks and one cross block.
+Caches are a list of per-self-block dicts — ``{"kv": {"k", "v", "pos"}}``
+for attention, ``{"ssm": {"state", "conv"}}`` for SSM, both for hybrid —
 updated in place by :func:`decode_step` (and by a prefill into them).
 
-Without a cache, each block runs under the reference's remat policy
-(:func:`remat_wrap`, ``cfg.remat``) when autograd records: ``"block"`` /
-``"full"`` recompute the whole block in the backward
-(``torch.utils.checkpoint``), ``"block_dots"`` saves the matrix products'
-outputs and recomputes the rest; serving (a cache) takes no wrapper.
+Without a cache, each block (a VLM: each super-block) runs under the
+reference's remat policy (:func:`remat_wrap`, ``cfg.remat``) when autograd
+records: ``"block"`` / ``"full"`` recompute the whole block in the
+backward (``torch.utils.checkpoint``), ``"block_dots"`` saves the matrix
+products' outputs and recomputes the rest; serving (a cache) takes no
+wrapper.  The MoE blocks' aux losses are summed and discarded, as the
+reference's ``forward`` does.
 
 Entry points:
   init_params(gen, cfg)                  -> parameter dict
   forward(params, cfg, batch)            -> logits (prefill, no cache)
   loss_fn(params, cfg, batch)            -> (loss, metrics)
-  decode_step(params, cfg, tokens, caches, positions) -> (logits, caches)
+  decode_step(params, cfg, tokens, caches, positions, image_embeds=)
+                                         -> (logits, caches)
   init_caches(cfg, batch, s_max)         -> per-layer caches
 """
 from __future__ import annotations
@@ -29,29 +36,30 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from . import layers as L
+from . import moe as MOE
+from . import ssm as SSM
 from .config import ModelConfig
 from .layers import _dt
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the architectures the port does not serve yet."""
-    if cfg.block_type != "attention" or cfg.moe or cfg.cross_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: only attention blocks without MoE or "
-            f"cross-attention are ported (block_type={cfg.block_type!r}, "
-            f"moe={cfg.moe}, cross_attn_every={cfg.cross_attn_every}); "
-            f"ROADMAP A-6")
-
-
 # ---------------------------------------------------------------------------
-# Block = norm -> attention -> norm -> SwiGLU
+# Block = norm -> mixer (attention | ssm | hybrid) -> norm -> MoE | SwiGLU
 # ---------------------------------------------------------------------------
 def init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    dt = _dt(cfg, "param")
-    p: dict = {"norm1": L.init_rmsnorm(cfg.d_model, dt, gen.device),
-               "attn": L.init_attention(gen, cfg)}
-    if cfg.d_ff:
-        p["norm2"] = L.init_rmsnorm(cfg.d_model, dt, gen.device)
+    dt, dev = _dt(cfg, "param"), gen.device
+    p: dict = {"norm1": L.init_rmsnorm(cfg.d_model, dt, dev)}
+    if cfg.block_type in ("attention", "hybrid"):
+        p["attn"] = L.init_attention(gen, cfg)
+    if cfg.block_type in ("ssm", "hybrid"):
+        p["ssm"] = SSM.init_ssm(gen, cfg)
+    if cfg.block_type == "hybrid":
+        p["attn_out_norm"] = L.init_rmsnorm(cfg.d_model, dt, dev)
+        p["ssm_out_norm"] = L.init_rmsnorm(cfg.d_model, dt, dev)
+    if cfg.moe:
+        p["norm2"] = L.init_rmsnorm(cfg.d_model, dt, dev)
+        p["moe"] = MOE.init_moe(gen, cfg)
+    elif cfg.d_ff:
+        p["norm2"] = L.init_rmsnorm(cfg.d_model, dt, dev)
         p["mlp"] = L.init_mlp(gen, cfg)
     return p
 
@@ -59,35 +67,77 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, cache: dict | None = None,
                 extra_mask: torch.Tensor | None = None,
-                ) -> tuple[torch.Tensor, dict | None]:
-    """-> (x_out, cache), the cache updated in place.  The reference also
-    returns an auxiliary loss, which only its MoE blocks make (0 here)."""
+                valid: torch.Tensor | None = None,
+                ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
+    """-> (x_out, cache, aux loss), the cache updated in place.  ``valid``
+    (a right-padded prefill's (B, S) mask) goes to the SSM only, as the
+    reference engine's prefill passes it; a hybrid block adds the mean of
+    its two normed mixers."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    a, kvc = L.apply_attention(p["attn"], cfg, h, positions,
-                               kv_cache=None if cache is None
-                               else cache["kv"], extra_mask=extra_mask)
-    x = x + a
-    if cfg.d_ff:
+    new_cache: dict | None = None if cache is None else {}
+    if cfg.block_type in ("attention", "hybrid"):
+        a, kvc = L.apply_attention(p["attn"], cfg, h, positions,
+                                   kv_cache=None if cache is None
+                                   else cache["kv"], extra_mask=extra_mask)
+        if cache is not None:
+            new_cache["kv"] = kvc
+    if cfg.block_type in ("ssm", "hybrid"):
+        s_out, ssc = SSM.apply_ssm(p["ssm"], cfg, h,
+                                   ssm_cache=None if cache is None
+                                   else cache["ssm"], valid=valid)
+        if cache is not None:
+            new_cache["ssm"] = ssc
+    if cfg.block_type == "attention":
+        x = x + a
+    elif cfg.block_type == "ssm":
+        x = x + s_out
+    else:  # hybrid: parallel attention + SSM heads, mean-combined (Hymba)
+        a = L.rmsnorm(p["attn_out_norm"], a, cfg.norm_eps)
+        s_out = L.rmsnorm(p["ssm_out_norm"], s_out, cfg.norm_eps)
+        x = x + 0.5 * (a + s_out)
+    if cfg.moe:
+        h2 = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        m, aux = MOE.apply_moe(p["moe"], cfg, h2)
+        x = x + m
+    elif cfg.d_ff:
         h2 = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
         x = x + L.apply_mlp(p["mlp"], cfg, h2)
-    return x, None if cache is None else {"kv": kvc}
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
 # Whole model
 # ---------------------------------------------------------------------------
+#: the top-level keys whose lists of blocks the reference stacks on a layer
+#: axis (it initialises them with ``vmap``); the port keeps one dict each
+STACKED = ("blocks", "cross_blocks")
+
+
+def n_cross_blocks(cfg: ModelConfig) -> int:
+    """The cross blocks of a VLM (one per super-block), else 0; the other
+    ``n_layers − n_cross_blocks`` layers are self blocks."""
+    return cfg.n_layers // cfg.cross_attn_every if cfg.cross_attn_every else 0
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on the generator's device, with the reference's
-    distributions: dense N(0, 1/in), embedding N(0, 0.02²), norms ones.
-    Drawn layer by layer, then the embedding(s): not the reference's
-    numbers (jax keys are not a torch generator)."""
-    check_supported(cfg)
-    p = {"blocks": [init_block(gen, cfg) for _ in range(cfg.n_layers)],
+    distributions: dense N(0, 1/in), embedding N(0, 0.02²), norms ones
+    (MoE and SSM: theirs).  Drawn self block by self block, then the
+    embedding(s), then the cross blocks: not the reference's numbers (jax
+    keys are not a torch generator)."""
+    dt = _dt(cfg, "param")
+    n_self = cfg.n_layers - n_cross_blocks(cfg)
+    p = {"blocks": [init_block(gen, cfg) for _ in range(n_self)],
          "embed": L.init_embedding(gen, cfg),
-         "final_norm": L.init_rmsnorm(cfg.d_model, _dt(cfg, "param"),
-                                      gen.device)}
+         "final_norm": L.init_rmsnorm(cfg.d_model, dt, gen.device)}
     if not cfg.tie_embeddings:
         p["unembed"] = {"table": L.init_embedding(gen, cfg)["table"]}
+    if cfg.cross_attn_every:
+        p["cross_blocks"] = [
+            {"norm": L.init_rmsnorm(cfg.d_model, dt, gen.device),
+             "xattn": L.init_cross_attention(gen, cfg)}
+            for _ in range(n_cross_blocks(cfg))]
     return p
 
 
@@ -120,25 +170,50 @@ def remat_wrap(cfg: ModelConfig, fn):
 
 
 def run_blocks(params, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor, caches: list[dict] | None = None
-               ) -> torch.Tensor:
-    """Every block (the reference's scan), then the final norm.  Without
-    caches and with autograd recording, each block runs under
+               positions: torch.Tensor, caches: list[dict] | None = None, *,
+               image_embeds: torch.Tensor | None = None,
+               extra_mask: torch.Tensor | None = None,
+               valid: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every block (the reference's scan), then the final norm: -> (x, the
+    summed MoE aux loss, which the callers drop as the reference's
+    ``forward`` does).  A VLM interleaves super-blocks: ``cross_attn_every
+    − 1`` self blocks, then one cross block over ``image_embeds``.  Without
+    caches and with autograd recording, each block (super-block) runs under
     :func:`remat_wrap`."""
     remat = caches is None and torch.is_grad_enabled()
-    for i, layer_p in enumerate(params["blocks"]):
+    blocks = params["blocks"]
+    per = cfg.cross_attn_every - 1 if cfg.cross_attn_every else 1
+    groups = range(0, len(blocks), per)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g, first in enumerate(groups):
+        fn = functools.partial(
+            _group, params, cfg, first, per, g if cfg.cross_attn_every
+            else None, caches, image_embeds, extra_mask, valid)
         if remat:
-            x = remat_wrap(cfg, functools.partial(_block_x, layer_p, cfg))(
-                x, positions)
+            x, a = remat_wrap(cfg, fn)(x, positions)
         else:
-            x, _c = apply_block(layer_p, cfg, x, positions,
-                                cache=None if caches is None else caches[i])
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            x, a = fn(x, positions)
+        aux = aux + a
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
-def _block_x(p: dict, cfg: ModelConfig, x: torch.Tensor,
-             positions: torch.Tensor) -> torch.Tensor:
-    return apply_block(p, cfg, x, positions)[0]
+def _group(params, cfg: ModelConfig, first: int, n: int, cross: int | None,
+           caches, image_embeds, extra_mask, valid, x: torch.Tensor,
+           positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Self blocks ``first .. first + n − 1`` then, for a VLM, cross block
+    ``cross``: -> (x, the summed aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(first, first + n):
+        x, _c, a = apply_block(params["blocks"][i], cfg, x, positions,
+                               cache=None if caches is None else caches[i],
+                               extra_mask=extra_mask, valid=valid)
+        aux = aux + a
+    if cross is not None:
+        cp = params["cross_blocks"][cross]
+        hn = L.rmsnorm(cp["norm"], x, cfg.norm_eps)
+        x = x + L.apply_cross_attention(cp["xattn"], cfg, hn, image_embeds)
+    return x, aux
 
 
 def unembed_table(params, cfg: ModelConfig) -> dict:
@@ -147,22 +222,23 @@ def unembed_table(params, cfg: ModelConfig) -> dict:
 
 
 def forward(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """batch: {"tokens": (B, S) int, optional "positions" (B, S)} ->
-    logits (B, S, V) float32.  ``input_embeds``, ``image_embeds`` and
-    ``extra_mask`` raise (ROADMAP A-6)."""
-    check_supported(cfg)
-    for key in ("input_embeds", "image_embeds", "extra_mask"):
-        if batch.get(key) is not None:
-            raise NotImplementedError(f"{key} is not ported yet "
-                                      f"(ROADMAP A-6)")
+    """batch: {"tokens": (B, S) int, optional "positions" (B, S),
+    "input_embeds" (B, S, D) (the audio stub's frame embeddings, used in
+    place of the token embeddings), "image_embeds" (B, T_img, D),
+    "extra_mask" (B, S, S) bool} -> logits (B, S, V) float32."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).repeat(b, 1)
-    x = L.embed(params["embed"], cfg, tokens)
-    x = run_blocks(params, cfg, x, positions)
+    if batch.get("input_embeds") is not None:
+        x = batch["input_embeds"].to(_dt(cfg, "compute"))
+    else:
+        x = L.embed(params["embed"], cfg, tokens)
+    x, _aux = run_blocks(params, cfg, x, positions,
+                         image_embeds=batch.get("image_embeds"),
+                         extra_mask=batch.get("extra_mask"))
     return L.unembed(unembed_table(params, cfg), cfg, x)
 
 
@@ -220,19 +296,30 @@ def loss_fn(params, cfg: ModelConfig, batch: dict
 def init_caches(cfg: ModelConfig, batch: int, s_max: int,
                 dtype: torch.dtype = torch.bfloat16,
                 device="cuda") -> list[dict]:
-    """Per-layer caches; a sliding-window config gets ``min(s_max,
-    window)`` slots (a ring buffer)."""
-    check_supported(cfg)
+    """Per-self-block caches: ``"kv"`` for attention and hybrid blocks (a
+    sliding-window config gets ``min(s_max, window)`` slots, a ring
+    buffer), ``"ssm"`` for SSM and hybrid blocks (float32 state, conv
+    window in the compute type)."""
     s_eff = min(s_max, cfg.sliding_window) if cfg.sliding_window else s_max
-    return [{"kv": L.init_kv_cache(cfg, batch, s_eff, dtype, device)}
-            for _ in range(cfg.n_layers)]
+    caches = []
+    for _ in range(cfg.n_layers - n_cross_blocks(cfg)):
+        c = {}
+        if cfg.block_type in ("attention", "hybrid"):
+            c["kv"] = L.init_kv_cache(cfg, batch, s_eff, dtype, device)
+        if cfg.block_type in ("ssm", "hybrid"):
+            c["ssm"] = SSM.init_ssm_cache(cfg, batch, device)
+        caches.append(c)
+    return caches
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
-                caches: list[dict], positions: torch.Tensor,
+                caches: list[dict], positions: torch.Tensor, *,
+                image_embeds: torch.Tensor | None = None,
                 ) -> tuple[torch.Tensor, list[dict]]:
     """One decode step: tokens (B, 1) at positions (B, 1) -> (logits (B, 1,
-    V), caches), the caches updated in place."""
+    V), caches), the caches updated in place; a VLM's cross blocks attend
+    to ``image_embeds`` between its self blocks, as in :func:`forward`."""
     x = L.embed(params["embed"], cfg, tokens)
-    x = run_blocks(params, cfg, x, positions, caches)
+    x, _aux = run_blocks(params, cfg, x, positions, caches,
+                         image_embeds=image_embeds)
     return L.unembed(unembed_table(params, cfg), cfg, x), caches

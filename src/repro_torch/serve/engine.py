@@ -11,10 +11,17 @@ continuous batching (``repro.serve.engine`` on torch).
   reference's formula — deterministic, but not jax's bits.
 
 The caches live on the engine's device and are written in place: a
-prefill gets views of its slot's caches (:meth:`ServeEngine._slot_caches`)
-and writes them directly, which is what the reference's
-``_write_slot`` does after its functional prefill.  Attention-block
-architectures only (others raise ``NotImplementedError``, ROADMAP A-6).
+prefill gets views of its slot's caches (:meth:`ServeEngine._slot_caches`:
+K/V and positions, SSM state and conv window) and writes them directly,
+which is what the reference's ``_write_slot`` does after its functional
+prefill.  SSM and hybrid architectures prefill right-padded to a multiple
+of ``ssm_chunk``: the pads get the sentinel position and a ``valid`` mask
+keeps them out of the SSM state (the reference's exact padded prefill).
+
+A cross-attention (VLM) config raises ``NotImplementedError``: the
+reference engine cannot serve one (its prefill scans only
+``params["blocks"]`` and its decode passes no ``image_embeds``; ROADMAP
+C-9), and the port does not invent a VLM serving path it lacks.
 
 The engine keeps host-clock walls: ``prefill_s`` (one per admitted
 request, prefill + first sample) and ``decode_s`` (one per step, decode +
@@ -49,13 +56,14 @@ def _prefill_fn(params, cfg: ModelConfig, tokens: torch.Tensor,
                 valid: torch.Tensor, caches: list[dict]):
     """tokens, valid: (1, S) -> (logits at the last valid position (1, V),
     caches written in place).  Pads get the sentinel position, so their
-    keys are never attended.  Only the last valid position is unembedded
-    (the reference unembeds every position and keeps that one: the same
-    row-wise values)."""
+    keys are never attended, and ``valid`` keeps them out of the SSM
+    state.  Only the last valid position is unembedded (the reference
+    unembeds every position and keeps that one: the same row-wise
+    values)."""
     real_pos = torch.clamp(torch.cumsum(valid.int(), dim=1) - 1, min=0)
     positions = torch.where(valid, real_pos, L.POS_SENTINEL).int()
     x = L.embed(params["embed"], cfg, tokens)
-    x = T.run_blocks(params, cfg, x, positions, caches)
+    x, _aux = T.run_blocks(params, cfg, x, positions, caches, valid=valid)
     last = valid.int().sum(1) - 1                                # (1,)
     x_last = x[torch.arange(x.shape[0], device=x.device), last]
     return L.unembed(T.unembed_table(params, cfg), cfg, x_last), caches
@@ -66,6 +74,12 @@ class ServeEngine:
                  max_len: int = 512, seed: int = 0,
                  cache_dtype: torch.dtype = torch.float32,
                  device="cuda"):
+        if cfg.cross_attn_every:
+            raise NotImplementedError(
+                f"{cfg.name}: the reference engine cannot serve a "
+                f"cross-attention config (its prefill scans only the self "
+                f"blocks and its decode passes no image_embeds; ROADMAP "
+                f"C-9)")
         self.cfg = cfg
         self.params = params
         self.n_slots = n_slots
@@ -74,6 +88,16 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.caches = T.init_caches(cfg, n_slots, max_len, dtype=cache_dtype,
                                     device=self.device)
+        self.chunk = cfg.ssm_chunk \
+            if cfg.block_type in ("ssm", "hybrid") else 1
+        #: the longest prompt a prefill can write (None: no KV cache, no
+        #: limit): the KV cache's slots (a sliding window's ring) rounded
+        #: down to the SSM chunk — the reference's prefill writes its whole
+        #: padded block at slot 0 and fails past that too (ROADMAP C-10)
+        self.max_prompt = None
+        if cfg.block_type != "ssm":
+            slots = min(max_len, cfg.sliding_window or max_len)
+            self.max_prompt = slots // self.chunk * self.chunk
         self.slot_req: list[Request | None] = [None] * n_slots
         self.slot_pos = np.zeros(n_slots, dtype=np.int32)
         self.slot_next = np.zeros(n_slots, dtype=np.int32)
@@ -87,6 +111,10 @@ class ServeEngine:
     # ------------- request management -------------
     def submit(self, prompt: list[int], *, max_new_tokens: int = 32,
                temperature: float = 0.0) -> int:
+        if self.max_prompt is not None and len(prompt) > self.max_prompt:
+            raise ValueError(f"a {len(prompt)}-token prompt does not fit "
+                             f"the cache (at most {self.max_prompt}; ROADMAP "
+                             f"C-10)")
         self._rid += 1
         self.queue.append(Request(self._rid, list(prompt), max_new_tokens,
                                   temperature))
@@ -94,8 +122,8 @@ class ServeEngine:
 
     def _slot_caches(self, slot: int) -> list[dict]:
         """Views of one slot's caches (batch axis sliced, storage shared)."""
-        return [{"kv": {n: t[slot:slot + 1] for n, t in c["kv"].items()}}
-                for c in self.caches]
+        return [{kind: {n: t[slot:slot + 1] for n, t in part.items()}
+                 for kind, part in c.items()} for c in self.caches]
 
     def _admit(self) -> None:
         for slot in range(self.n_slots):
@@ -104,9 +132,11 @@ class ServeEngine:
             t0 = time.perf_counter()
             req = self.queue.pop(0)
             s = len(req.prompt)
-            tok = torch.tensor([req.prompt], dtype=torch.int64,
-                               device=self.device)
-            valid = torch.ones((1, s), dtype=torch.bool, device=self.device)
+            s_pad = -(-s // self.chunk) * self.chunk
+            tok = torch.zeros((1, s_pad), dtype=torch.int64)
+            tok[0, :s] = torch.tensor(req.prompt)
+            tok = tok.to(self.device)
+            valid = (torch.arange(s_pad) < s)[None].to(self.device)
             logits, _ = _prefill_fn(self.params, self.cfg, tok, valid,
                                     self._slot_caches(slot))
             nxt = self._sample(logits[0], req)

@@ -1,10 +1,12 @@
 """Where the time of the serving path goes, on one CUDA device.
 
-    python -m repro_torch.serve_profile [--out build/serve_profile.json]
+    python -m repro_torch.serve_profile [--arch qwen3-4b]
+        [--out build/serve_profile.json]
 
-``configs/qwen3_4b.py`` uncut (random bf16 weights from a seeded
-generator) behind ``ServeEngine`` with 4 slots of 4096 tokens and the
-float32 cache.  Two cells, each measured as ``mc_profile.measure`` does
+A config of ``configs/`` uncut (``--arch``: ``configs/qwen3_4b.py`` by
+default; also the MoE, hybrid and SSM families the engine serves; random
+bf16 weights from a seeded generator) behind ``ServeEngine`` with 4 slots
+of 4096 tokens and the float32 cache.  Two cells, each measured as ``mc_profile.measure`` does
 (wall = median of ``REPS`` untraced calls ending in a synchronize; device
 time per kernel from one ``torch.profiler`` trace; busy share = device
 time / wall):
@@ -39,6 +41,7 @@ DECODE_PROMPTS = (2048, 1536, 1280, 1024)
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=ARCH)
     ap.add_argument("--out", default="build/serve_profile.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -50,7 +53,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = T.init_params(gen, cfg)
@@ -71,7 +74,7 @@ def main(argv=None) -> int:
                    max_new_tokens=MAX_LEN)
     eng.step()                        # admits the four prompts
     cells["serve_decode"] = measure(eng.step, REPS)
-    out = {"card": smi, "arch": ARCH, "slots": SLOTS, "max_len": MAX_LEN,
+    out = {"card": smi, "arch": args.arch, "slots": SLOTS, "max_len": MAX_LEN,
            "prefill_len": PREFILL_LEN, "decode_prompts": DECODE_PROMPTS,
            "decode_positions_after": [int(p) for p in eng.slot_pos],
            "cells": cells}

@@ -10,8 +10,9 @@ parameters a second copy of the whole tree does not fit beside the AdamW
 moments.  Parameters keep their type (a bf16 weight is updated in float32
 and rounded back, as the reference's ``.astype(p.dtype)``).
 
-Trees are the port's parameter dicts: ``params["blocks"]`` is a list of
-per-layer dicts where the reference stacks the layers on a leading axis.
+Trees are the port's parameter dicts: ``params["blocks"]`` (and a VLM's
+``params["cross_blocks"]``) is a list of per-layer dicts where the
+reference stacks the layers on a leading axis.
 Where that stacking changes the result, the functions here reproduce the
 stacked one: the global norm is a sum over everything either way, but
 Adafactor factors a stacked ``(L, d)`` norm scale across layers and clips
@@ -23,6 +24,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..models.transformer import STACKED
 
 
 # ---------------------------------------------------------------------------
@@ -60,18 +63,19 @@ def tree_map(fn, tree):
 
 def leaf_groups(tree) -> list[tuple[tuple, list[torch.Tensor]]]:
     """The reference's leaves, as groups of the port's tensors: each leaf
-    outside ``"blocks"`` alone, and each path inside the blocks with its
-    tensor of every layer (the reference's stacked leaf).  -> [(path,
-    [tensor, ...])]; ``path`` holds the keys, ``"blocks"`` and then the
-    keys within a block."""
+    outside the stacked lists (``transformer.STACKED``) alone, and each
+    path inside them with its tensor of every layer (the reference's
+    stacked leaf).
+    -> [(path, [tensor, ...])]; ``path`` holds the keys, ``"blocks"`` (or
+    ``"cross_blocks"``) and then the keys within a block."""
     out = []
 
     def walk(node, path):
         if isinstance(node, dict):
             for k, v in node.items():
-                if path == () and k == "blocks" and isinstance(v, list):
+                if path == () and k in STACKED and isinstance(v, list):
                     for sub in _paths(v[0], ()):
-                        out.append((("blocks", *sub),
+                        out.append(((k, *sub),
                                     [_at(layer, sub) for layer in v]))
                 else:
                     walk(v, (*path, k))
@@ -191,12 +195,12 @@ def _slot_shape(shape) -> dict:
 def adafactor_init(params) -> dict:
     """Slots of the reference's leaves: ``{"vr", "vc"}`` for a leaf of two
     or more axes (the blocks' leaves stacked: ``(L, *shape)``), else
-    ``{"v"}``; nested as the parameters, with ``"blocks"`` one dict of
-    stacked slots as in the reference."""
+    ``{"v"}``; nested as the parameters, with ``"blocks"`` (and
+    ``"cross_blocks"``) one dict of stacked slots as in the reference."""
     slots: dict = {}
     for path, group in leaf_groups(params):
         shape = tuple(group[0].shape)
-        if path[0] == "blocks":
+        if path[0] in STACKED:
             shape = (len(group), *shape)
         node = slots
         for k in path[:-1]:
@@ -237,7 +241,7 @@ def adafactor_update_(grads, state: dict, params, *, lr: float,
     for path, group in leaf_groups(params):
         slot = _at(state["slots"], path)
         gs = [by_id[id(p)] for p in group]
-        stacked = path[0] == "blocks"
+        stacked = path[0] in STACKED
         if stacked and group[0].dim() >= 2:
             n_el, sumsq = 0, None
             for i, g in enumerate(gs):

@@ -61,7 +61,10 @@ def _grads(params, leaves, cfg: ModelConfig, batch: dict):
         t.requires_grad_(True)
     try:
         loss, metrics = T.loss_fn(params, cfg, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (the token embedding of a model
+        # fed ``input_embeds``) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     finally:
         for t in leaves:
             t.requires_grad_(False)

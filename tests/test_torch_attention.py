@@ -866,3 +866,31 @@ def test_fused_attention_trains_through_the_kernels_on_card(card):
     for g, w in zip(got, want, strict=True):
         assert float((g.cpu() - w).abs().max()) <= \
             1e-5 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_decode_step_takes_sliced_positions_on_card(card):
+    """``decode_step`` with its positions sliced from a longer row
+    (``pos[:, 9:10]``: contiguous, but 36 bytes past a 16-byte boundary,
+    where the kernel reads aligned rows) gives the logits of a fresh
+    positions tensor, both through the kernel."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(name="t", n_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=2, d_ff=128, vocab=128, head_dim=16,
+                      param_dtype="float32", compute_dtype="float32")
+    g = torch.Generator(device=card)
+    g.manual_seed(0)
+    params = T.init_params(g, cfg)
+    toks = torch.randint(2, cfg.vocab, (1, 10), generator=g, device=card)
+    pos = torch.arange(10, dtype=torch.int32, device=card)[None]
+    runs = []
+    for step in (pos[:, 9:10], torch.full_like(pos[:, :1], 9)):
+        caches = T.init_caches(cfg, 1, 16, dtype=torch.float32, device=card)
+        T.decode_step(params, cfg, toks[:, :9], caches, pos[:, :9])
+        before = FA.launches["flash_attention"]
+        logits, _ = T.decode_step(params, cfg, toks[:, 9:], caches, step)
+        assert FA.launches["flash_attention"] == before + cfg.n_layers
+        runs.append(logits)
+    assert pos[:, 9:10].data_ptr() % 16
+    assert torch.equal(runs[0], runs[1])

@@ -232,22 +232,6 @@ def test_bf16_parameters_cross_over_bit_for_bit():
         convert.lm_params_from_numpy(rp, tcfg.replace(n_layers=3), "cpu")
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "qwen2-moe-a2.7b",
-                                  "hymba-1.5b", "llama-3.2-vision-90b"])
-def test_unported_architectures_raise(arch):
-    cfg = TC.get_config(arch).smoke()
-    with pytest.raises(NotImplementedError, match="A-6"):
-        TT.init_params(torch.Generator().manual_seed(0), cfg)
-
-
-def test_extra_mask_raises():
-    _rcfg, _rp, tcfg, tp = _models("qwen3-4b")
-    toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="A-6"):
-        TT.forward(tp, tcfg, {"tokens": toks,
-                              "extra_mask": torch.ones((1, 4, 4), dtype=bool)})
-
-
 # ---------------------------------------------------------------------------
 # Serving engine
 # ---------------------------------------------------------------------------

@@ -12,6 +12,11 @@ Both packages start from one state: the reference's ``init_params`` /
   block_dots: the same gradients), with and without ``loss_mask``: loss
   within 1e-5, each gradient within 1e-5 of its largest entry (float32,
   sums in other orders through two layers);
+* ``rmsnorm``'s backward at bf16 (the reference's ``custom_vjp``): ``dx``
+  bit for bit, ``dscale`` within 1e-6 relative (float32 sums in another
+  order); ``loss_fn``'s gradients at the reference's default bf16 compute
+  within bf16 rounding (loss within 1e-3, each gradient within 2^-4 of its
+  largest entry: two layers of bf16 products summed in other orders);
 * the optimizer and compression functions on the same trees: ``cosine_lr``
   exact, the global norm within 1e-6 relative, AdamW / Adafactor updates
   within 1e-6, ``quantize_int8`` / the error-feedback round bit for bit;
@@ -36,6 +41,7 @@ import torch
 from repro import configs as RC
 from repro.data import pipeline as RD
 from repro.models import config as RCFG
+from repro.models import layers as RL
 from repro.models import transformer as RT
 from repro.train import compress as RCMP
 from repro.train import optim as RO
@@ -44,6 +50,7 @@ from repro_torch import configs as TC
 from repro_torch import convert
 from repro_torch.data import pipeline as TD
 from repro_torch.models import config as TCFG
+from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.train import compress as TCMP
 from repro_torch.train import optim as TO
@@ -201,6 +208,64 @@ def test_block_remat_recomputes_the_attention_forward():
             FA.flash_attention_plain = plain
         calls[remat] = n[0]
     assert calls == {"none": 2, "block": 4}
+
+
+@pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bf16_vjp_matches_reference(scale_dtype):
+    """(4, 64, 256) bf16 x: the reference's rounding points give ``dx`` bit
+    for bit; ``dscale`` (summed in float32 over every leading axis, cast
+    to the scale's type) within 1e-6 relative — a float32 scale; a bf16
+    one within one bf16 rounding of that."""
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(rng.normal(0, 1, (4, 64, 256)), jnp.bfloat16)
+    scale = jnp.asarray(rng.normal(1, 0.1, 256), scale_dtype)
+    dy = jnp.asarray(rng.normal(0, 1, x.shape), jnp.bfloat16)
+    out, vjp = jax.vjp(lambda a, b: RL.rmsnorm({"scale": b}, a), x, scale)
+    want_dx, want_ds = vjp(dy)
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.array(a.astype(jnp.float32))).to(getattr(torch, str(a.dtype)))
+    tx, ts = t(x).requires_grad_(True), t(scale).requires_grad_(True)
+    got = TL.rmsnorm({"scale": ts}, tx)
+    assert torch.equal(got.float(), t(out).float())
+    dx, ds = torch.autograd.grad(got, [tx, ts], t(dy))
+    assert dx.dtype == torch.bfloat16 and ds.dtype == ts.dtype
+    assert torch.equal(dx.float(), t(want_dx).float())
+    want_ds = t(want_ds).float()
+    rel = float((ds.float() - want_ds).abs().max() / want_ds.abs().max())
+    assert rel <= (1e-6 if scale_dtype == "float32" else 2.0 ** -8), rel
+
+
+@pytest.mark.parametrize("fam", ["qwen3-4b", "hymba-1.5b", "mamba2-780m"])
+def test_loss_and_grads_at_bf16_compute(fam):
+    """The reference's default bf16 compute (float32 parameters): the loss
+    within 1e-3 and each gradient within 2^-4 of its largest entry — 16
+    bf16 ulps of it, the rounding of two layers of bf16 products and
+    cotangents summed in other orders (measured: at most 0.047).  Not MoE:
+    there one bf16 rounding can flip a token's top-k choice between two
+    near-equal experts (seen at the qwen2-moe smoke config: probabilities
+    0.2379 / 0.2407), a discrete change no rounding bound covers."""
+    rcfg = RC.get_config(fam).smoke().replace(compute_dtype="bfloat16")
+    tcfg = TC.get_config(fam).smoke().replace(compute_dtype="bfloat16")
+    params = RT.init_params(jax.random.PRNGKey(3), rcfg)
+    batch = _batch(rcfg, mask=False)
+    (loss, _m), grads = jax.jit(jax.value_and_grad(RT.loss_fn, has_aux=True),
+                                static_argnums=1)(
+        params, rcfg, jax.tree.map(jnp.asarray, batch))
+    tp = convert.lm_params_from_numpy(jax.tree.map(np.asarray, params), tcfg,
+                                      "cpu")
+    leaves = TO.tree_leaves(tp)
+    for t in leaves:
+        t.requires_grad_(True)
+    got_loss, _ = TT.loss_fn(tp, tcfg, {k: torch.from_numpy(v)
+                                        for k, v in batch.items()})
+    got = torch.autograd.grad(got_loss, leaves)
+    assert abs(float(got_loss.detach()) - float(loss)) <= 1e-3
+    want = convert.lm_params_from_numpy(jax.tree.map(np.asarray, grads),
+                                        tcfg, "cpu")
+    for g, w in zip(got, TO.leaves_like(want, tp), strict=True):
+        assert g.dtype == w.dtype
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((g - w).abs().max()) <= 2.0 ** -4 * scale
 
 
 # ---------------------------------------------------------------------------
