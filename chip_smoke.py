@@ -134,6 +134,24 @@ Phases:
     Phase 3 holds the attention kernel to its plain version at these
     families' shapes too (hymba's prefill and decode, qwen2-moe's hd 128
     MHA, the VLM's non-causal cross-attention over 1024 keys).
+18. the mesh (``mesh_train_path``, after the training parity): a
+    one-process NCCL group and the launcher's (1, 1) ``("data",
+    "model")`` host mesh; ``launch.train.main`` trains hymba-1.5b and then
+    mamba2-780m uncut (bf16 parameters, AdamW, remat="block") on DTensors
+    placed by the sharding rules, 3 steps of 2 x 2048 tokens from
+    ``SyntheticLM`` with a checkpoint after step 2 and the final one after
+    step 3; the step-3 checkpoint removed, a restart resumes from step 2
+    and its step 3 equals the uninterrupted one bit for bit (every leaf);
+    hymba launches 32 x 2 attention forwards and 32 backwards a step,
+    mamba2 none; step walls, tokens/s, losses and peak bytes printed.
+    ``mesh_parity``: qwen3-4b's widths cut to 2 layers, float32, TF32 off,
+    one train step (2 microbatches) on the (1, 1) mesh equal bit for bit
+    to the same step without a mesh;
+19. ``roofline``: ``dispatch_cost`` of one ``train_path`` step (fake
+    tensors, on the host), its H100 roofline terms (the data sheet's
+    rates), and, from ``train_path``'s median step wall, ``mfu`` =
+    ``model_flops`` / wall / 989e12, printed with the card's name and
+    power limit.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -147,6 +165,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -208,6 +227,15 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3-4b", 2, 2048, 3
 #: the float32 card-vs-CPU training check: the same widths cut to these
 #: (so the CPU side stays small), its sequence length
 TRAIN_F32_LAYERS, TRAIN_F32_VOCAB, TRAIN_F32_SEQ = 2, 8192, 256
+#: the families trained through the mesh launcher (src/repro/configs,
+#: uncut), at TRAIN_BATCH x TRAIN_SEQ for TRAIN_STEPS steps, a checkpoint
+#: every MESH_CKPT_EVERY steps
+MESH_TRAIN_ARCHS, MESH_CKPT_EVERY = ("hymba-1.5b", "mamba2-780m"), 2
+#: the reference's default TrainConfig learning rate (the launcher's own
+#: default is 1e-3)
+MESH_TRAIN_LR = 3e-4
+#: mesh_parity: qwen3-4b's widths cut to these layers, float32
+MESH_PARITY_LAYERS = 2
 #: cache position of an unwritten slot (POS_SENTINEL)
 SENTINEL = (2 ** 31 - 1) // 2
 #: the projection widths of src/repro/configs/qwen3_4b.py, on 2048 tokens
@@ -2637,6 +2665,190 @@ def train_f32_card(counts: Counts) -> dict:
     assert out["resume_bit_equal"], out
     return out
 
+def _local(t):
+    """A DTensor's local shard (on a (1, 1) mesh: all of it)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_train_path(counts: Counts, card: str) -> dict:
+    """hymba-1.5b and mamba2-780m uncut, trained by ``launch.train.main``
+    on the (1, 1) host mesh of the open one-process group: 3 steps with a
+    checkpoint after step 2 (and the launcher's final one after step 3);
+    then the step-3 checkpoint is removed and a restart resumes from step
+    2: its step 3 must equal the uninterrupted one bit for bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as LT
+    from repro_torch.train import optim as TO
+    out = {}
+    for arch in MESH_TRAIN_ARCHS:
+        cfg = get_config(arch)
+        attn = cfg.n_layers if cfg.block_type in ("attention", "hybrid") \
+            else 0
+        with tempfile.TemporaryDirectory() as tmp:
+            args = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch",
+                    str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr",
+                    str(MESH_TRAIN_LR), "--ckpt-every",
+                    str(MESH_CKPT_EVERY), "--out", tmp]
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            counts.reset()
+            a = LT.main(args)
+            c = counts.read(f"mesh_train_{arch}")
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            shutil.rmtree(os.path.join(tmp, f"step_{TRAIN_STEPS:010d}"))
+            counts.reset()
+            b = LT.main(args)
+            r = counts.read(f"mesh_resume_{arch}")
+            with open(os.path.join(tmp, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+        got = TO.tree_leaves(b["state"])
+        want = TO.leaves_like(a["state"], b["state"])
+        equal = all(torch.equal(_local(x), _local(y))
+                    and _local(x).dtype == _local(y).dtype
+                    for x, y in zip(got, want, strict=True))
+        walls = [rec["dt_s"] for rec in recs[:TRAIN_STEPS]]
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        row = {"arch": arch, "params": cfg.param_count(), "dp": a["dp"],
+               "step_wall_s": walls,
+               "tokens_per_s": [tokens / w for w in walls],
+               "loss": [rec["loss"] for rec in recs],
+               "resumed_at": b["start"], "resume_bit_equal": equal,
+               "peak_bytes": peak, "wall_s": wall,
+               "flash_attention_launches": c["flash_attention"],
+               "flash_attention_bwd_launches": c["flash_attention_bwd"],
+               "resume_launches": [r["flash_attention"],
+                                   r["flash_attention_bwd"]]}
+        print(f"[mesh_train] {arch} full width ({row['params']} parameters,"
+              f" bf16, AdamW, remat=block) on the (1, 1) mesh on {card}: "
+              f"step walls {walls} s, tokens/s {row['tokens_per_s']}, loss "
+              f"{row['loss']}, peak memory {peak} B; resumed at "
+              f"{b['start']}, step {TRAIN_STEPS} bit-equal {equal}",
+              flush=True)
+        assert a["dp"] == 1 and b["start"] == MESH_CKPT_EVERY, row
+        assert c["flash_attention"] == attn * 2 * TRAIN_STEPS, row
+        assert c["flash_attention_bwd"] == attn * TRAIN_STEPS, row
+        assert r["flash_attention"] == attn * 2 * (
+            TRAIN_STEPS - MESH_CKPT_EVERY), row
+        assert all(np.isfinite(x) for x in row["loss"]), row
+        assert row["loss"][-1] == row["loss"][TRAIN_STEPS - 1], row
+        assert equal, row
+        out[arch] = row
+        del a, b, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_parity(counts: Counts) -> dict:
+    """qwen3-4b's widths cut to ``MESH_PARITY_LAYERS`` layers, float32 with
+    TF32 off: one train step (2 microbatches) on the (1, 1) mesh of the
+    open group equals the same step without a mesh, every leaf bit for bit
+    (on one rank every DTensor op is the local op)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import (batch_specs, distribute_tree,
+                                             state_specs)
+    from repro_torch.models.config import TrainConfig
+    from repro_torch.train import optim as TO
+    from repro_torch.train import step as TS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH).replace(
+        n_layers=MESH_PARITY_LAYERS, param_dtype="float32",
+        compute_dtype="float32")
+    tc = TrainConfig(learning_rate=1e-3, n_microbatches=2)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH),
+                        device="cpu").batch(0)
+    step = TS.build_train_step(cfg, tc)
+
+    def fresh():
+        return TS.init_state(torch.Generator(device="cuda").manual_seed(5),
+                             cfg, tc, "cuda")
+
+    counts.reset()
+    plain, pm = step(fresh(), batch)
+    cp = counts.read("mesh_parity_plain")
+    mesh = make_host_mesh(device="cuda")
+    state = fresh()
+    state = distribute_tree(state, state_specs(cfg, state, mesh), mesh)
+    tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    tb = distribute_tree(tb, batch_specs(tb, mesh), mesh)
+    counts.reset()
+    sharded, sm = step(state, tb)
+    cm = counts.read("mesh_parity")
+    got = TO.tree_leaves(sharded)
+    want = TO.leaves_like(plain, sharded)
+    pairs = list(zip(got, want, strict=True))
+    diff = [float((_local(x) - y).abs().max()) for x, y in pairs]
+    equal = all(torch.equal(_local(x), y) for x, y in pairs)
+    out = {"layers": MESH_PARITY_LAYERS, "bit_equal": equal,
+           "max_abs_diff": max(diff),
+           "loss": [float(pm["loss"]), float(sm["loss"])],
+           "launches": [cm["flash_attention"], cm["flash_attention_bwd"]]}
+    print(f"[mesh_parity] {MESH_PARITY_LAYERS}-layer float32 step on the "
+          f"(1, 1) mesh vs no mesh: bit-equal {equal}, largest |diff| "
+          f"{max(diff)}, losses {out['loss']}", flush=True)
+    per = MESH_PARITY_LAYERS * tc.n_microbatches
+    assert cm["flash_attention"] == cp["flash_attention"] == 2 * per, out
+    assert cm["flash_attention_bwd"] == cp["flash_attention_bwd"] == per
+    assert equal and out["loss"][0] == out["loss"][1], out
+    return out
+
+
+def roofline_phase(train_out: dict, card: str) -> dict:
+    """``dispatch_cost`` of one ``train_path`` step (qwen3-4b uncut, 2 x
+    2048 tokens, the default ``TrainConfig``) on fake tensors on the host,
+    its H100 roofline terms on one device, and ``mfu`` from
+    ``train_path``'s median step wall."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dispatch_cost as DC
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models.config import ShapeConfig, TrainConfig
+    from repro_torch.train import step as TS
+    cfg, tc = get_config(TRAIN_ARCH), TrainConfig()
+    shape = ShapeConfig("train_path", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        state = TS.init_state(torch.Generator().manual_seed(0), cfg, tc,
+                              "cpu")
+        batch = {"tokens": torch.zeros((TRAIN_BATCH, TRAIN_SEQ),
+                                       dtype=torch.int32),
+                 "labels": torch.zeros((TRAIN_BATCH, TRAIN_SEQ),
+                                       dtype=torch.int32),
+                 "loss_mask": torch.ones((TRAIN_BATCH, TRAIN_SEQ))}
+        cost = DC.dispatch_cost(TS.build_train_step(cfg, tc), state, batch,
+                                fake=False)
+    cost_s = time.perf_counter() - t0
+    terms = RL.roofline_terms({"dispatch_cost": cost,
+                               "collectives": {"total_bytes": 0}},
+                              cfg, shape, 1)
+    wall = float(np.median(train_out["step_wall_s"]))
+    out = {"arch": TRAIN_ARCH, "card": card, "step_wall_s": wall,
+           "mfu": RL.mfu(cfg, shape, wall),
+           "bound_over_wall": terms["bound_s"] / wall,
+           "peak_flops": RL.PEAK_FLOPS, "hbm_bytes_per_s": RL.HBM_BW,
+           "flops": cost["flops"], "dot_flops": cost["dot_flops"],
+           "bytes_major": cost["bytes_major"],
+           "dispatch_cost_s": cost_s, **terms}
+    print("[roofline] " + json.dumps(out), flush=True)
+    assert 0 < out["mfu"] < 1 and cost["dot_flops"] > terms["model_flops"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on the "
@@ -2813,6 +3025,22 @@ def main() -> int:
     t0 = _phase("train_path", t0, times)
     print("[train] " + json.dumps(train_f32_card(counts)), flush=True)
     t0 = _phase("train_f32_card", t0, times)
+
+    # ---- the mesh: a one-process NCCL group, the (1, 1) host mesh ----
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        print("[mesh_train] " + json.dumps(mesh_train_path(counts, card)),
+              flush=True)
+        t0 = _phase("mesh_train_path", t0, times)
+        print("[mesh_parity] " + json.dumps(mesh_parity(counts)),
+              flush=True)
+        t0 = _phase("mesh_parity", t0, times)
+    finally:
+        dist.destroy_process_group()
+    roofline_phase(train_out, card)
+    t0 = _phase("roofline", t0, times)
     print("[times] " + json.dumps(times), flush=True)
 
     rows = [row, *bit_rows, fa_row, merge_row, bwd_row]

@@ -17,8 +17,17 @@
 Leaves are named by their path in the port's dict / list tree
 (``params/blocks/3/attn/wq``).  A bf16 leaf is stored as its int16 bits,
 its dtype in the manifest (numpy has no bfloat16 without ``ml_dtypes``).
-The reference's sharded writes and elastic restore onto another mesh wait
-for the mesh (ROADMAP A-7): one process writes every leaf.
+
+**On a mesh** (a state of DTensors, ``launch/sharding.py``) a save
+gathers every leaf (``full_tensor``, which every rank calls) and rank 0
+writes the same one-file format; ranks meet at a barrier after a
+synchronous save.  :meth:`CheckpointManager.restore` places each leaf as
+its template leaf is placed (a DTensor template: its mesh and placements)
+or by ``shardings=``, a tree of ``(mesh, placements)``: an elastic restore
+onto a mesh other than the one that saved, or onto one process.  The
+reference's docstring promises per-process shard files; its code gathers
+every leaf and writes one ``arrays.npz``, which is what this port does
+(ROADMAP C-11).
 """
 from __future__ import annotations
 
@@ -31,19 +40,24 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
-def _flatten(tree, prefix: str = "") -> dict[str, torch.Tensor]:
-    """{leaf name: tensor} of a dict / list tree, in order."""
+def _flatten(tree, prefix: str = "", leaf=None) -> dict[str, object]:
+    """{leaf name: leaf} of a dict / list tree, in order (``leaf(x)``
+    true: ``x`` is a leaf, not a container)."""
+    if leaf is not None and leaf(tree):
+        return {prefix: tree}
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
         items = enumerate(tree)
     else:
         return {prefix: tree}
-    out: dict[str, torch.Tensor] = {}
+    out: dict[str, object] = {}
     for k, v in items:
-        out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+        out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k), leaf))
     return out
 
 
@@ -57,9 +71,16 @@ def _unflatten_like(tree, leaves: dict, prefix: str = ""):
     return leaves[prefix]
 
 
+def _writer() -> bool:
+    """This process writes checkpoints: rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(t) -> tuple[np.ndarray, str]:
     """-> (a host copy as a numpy array, dtype name); bf16 as its int16
-    bits."""
+    bits; a DTensor gathered first (a collective: every rank calls it)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = torch.as_tensor(t).detach()
     name = str(t.dtype).removeprefix("torch.")
     if t.dtype == torch.bfloat16:
@@ -83,15 +104,25 @@ class CheckpointManager:
 
     # ------------- save -------------
     def save(self, step: int, state, *, extra: dict | None = None) -> str:
-        """Write ``state`` as checkpoint ``step`` now; -> its directory."""
-        return self._write(step, self._host(state), extra or {})
+        """Write ``state`` as checkpoint ``step`` now; -> its directory.
+        On a mesh every rank calls it, rank 0 writes, all leave together."""
+        host = self._host(state)
+        final = os.path.join(self.dir, f"step_{step:010d}")
+        if _writer():
+            final = self._write(step, host, extra or {})
+        if dist.is_initialized():
+            dist.barrier()
+        return final
 
     def save_async(self, step: int, state, *,
                    extra: dict | None = None) -> None:
-        """Copy ``state`` to the host now, write it on a thread (after any
-        write still in flight)."""
+        """Copy ``state`` to the host now (on a mesh: gather it, every rank
+        calls), write it on a thread of rank 0 (after any write still in
+        flight)."""
         self.wait()
         host = self._host(state)
+        if not _writer():
+            return
 
         def work():
             self._write(step, host, extra or {})
@@ -160,15 +191,21 @@ class CheckpointManager:
             return json.load(f)
 
     def restore(self, template, step: int | None = None, *,
-                device=None) -> tuple[int, object]:
+                device=None, shardings=None) -> tuple[int, object]:
         """Restore checkpoint ``step`` (default: the latest) into the
         structure of ``template``; each leaf lands on ``device`` (default:
-        its template leaf's device) in the dtype it was saved with.
+        its template leaf's device) in the dtype it was saved with, placed
+        by ``shardings`` (a tree of ``(mesh, placements)`` of the same
+        structure) or, for a DTensor template leaf, as that leaf.  Every
+        rank reads the file: placing needs no communication.
         -> (step, state)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         manifest = self.manifest(step)
+        places = {}
+        if shardings is not None:
+            places = _flatten(shardings, leaf=lambda x: isinstance(x, tuple))
         leaves = {}
         with np.load(os.path.join(self.dir, f"step_{step:010d}",
                                   "arrays.npz")) as data:
@@ -183,5 +220,12 @@ class CheckpointManager:
                                      f"{arr.shape} vs template {shape}")
                 dev = device if device is not None else \
                     torch.as_tensor(tmpl).device
-                leaves[name] = _from_host(arr, meta["dtype"], dev)
+                t = _from_host(arr, meta["dtype"], dev)
+                where = places.get(name)
+                if where is None and isinstance(tmpl, DTensor):
+                    where = (tmpl.device_mesh, tmpl.placements)
+                if where is not None:
+                    t = distribute_tensor(t, where[0], list(where[1]),
+                                          src_data_rank=None)
+                leaves[name] = t
         return step, _unflatten_like(template, leaves)

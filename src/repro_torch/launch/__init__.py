@@ -1,2 +1,3 @@
-"""Launchers of the port: serve and train, on one device (the mesh and the
-sharded launcher wait, ROADMAP A-7)."""
+"""Launchers of the port: serve and train (sharded on a mesh when started
+under ``torchrun``), the meshes and sharding rules, and the dry-run tools
+(``dispatch_cost``, ``roofline``, ``dryrun``, ``hillclimb``)."""

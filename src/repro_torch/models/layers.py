@@ -22,8 +22,21 @@ reference chooses between its region and an unfused jnp path by
 takes the reference's unfused path, as its ``_flash_attend`` routes it:
 the kernel's plain twin with the mask, torch ops on any device.
 Cross-attention (:func:`apply_cross_attention`) goes through
-:func:`fused_attention` too.  The mesh constraints (``constrain_*``) are
-no-ops without a mesh and are left out.
+:func:`fused_attention` too.
+
+**Under a mesh** (DTensor parameters and batch, ``launch/sharding.py``)
+every op runs through DTensor's sharding propagation, except the regions
+that have no sharding rule or call a kernel, which run on each rank's
+local tensors (:func:`local_call`): the attention region on its batch rows
+and its local heads (:func:`fused_attention`; the heads are split on the
+``model`` axis only where both the query and the kv heads divide it, else
+the projections' column split is gathered first — qwen3-4b's ``wk`` puts
+40 columns, half a head, on each of 16 ranks), the cached attention
+(:func:`apply_attention`: each rank writes and attends over its slice of
+the sequence-sharded cache, the partial outputs merged by their ``lse``),
+the loss head (``transformer.py``), the SSM mixer (``ssm.py``) and the
+MoE dispatch (``moe.py``).  The reference's mesh constraints
+(``constrain_*``) are hints to GSPMD and have no counterpart.
 """
 from __future__ import annotations
 
@@ -31,6 +44,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import ops
 from ..kernels.flash_attention import flash_attention_plain
@@ -51,6 +66,78 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
     """N(0, 1/in) weights of shape (in, out), drawn in float32."""
     w = torch.randn((in_dim, out_dim), generator=gen, device=gen.device)
     return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Regions run on each rank's local tensors under a mesh
+# ---------------------------------------------------------------------------
+def batch_axes(mesh, b: int) -> tuple[str, ...]:
+    """The data-parallel axes (all but ``model``) that a global batch of
+    ``b`` rows shards over: as many as divide it, in order (the rule of
+    ``launch.sharding.batch_axis_spec``)."""
+    use, rem = [], b
+    for name, size in zip(mesh.mesh_dim_names, mesh.shape, strict=True):
+        if name != "model" and rem % size == 0 and rem >= size:
+            use.append(name)
+            rem //= size
+    return tuple(use)
+
+
+def batch_placements(mesh, b: int) -> list:
+    """Placements of each rank's rows of a ``b``-row batch axis (dim 0):
+    ``Shard(0)`` on its :func:`batch_axes` of more than one rank,
+    everything else gathered (as ``launch.sharding.to_placements``)."""
+    axes = batch_axes(mesh, b)
+    return [Shard(0) if name in axes and size > 1 else Replicate()
+            for name, size in zip(mesh.mesh_dim_names, mesh.shape,
+                                  strict=True)]
+
+
+def to_local_as(t, mesh, placements, grad_placements=None) -> torch.Tensor:
+    """``t`` placed by ``placements`` on ``mesh`` -> this rank's local
+    tensor, differentiably (a plain tensor is taken as replicated: each
+    rank holds all of it).  ``grad_placements``: how the local gradient
+    is placed, when it is not placed as the forward is (see
+    :func:`row_partial`)."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, placements).to_local(
+        grad_placements=grad_placements)
+
+
+def row_partial(rows: list) -> list:
+    """The gradient placements of a tensor gathered whole on every rank
+    and used by a computation on each rank's rows (``rows``): on each
+    axis that splits the rows, every rank holds only its rows' share of
+    the gradient — a ``Partial`` sum."""
+    return [Partial() if isinstance(p, Shard) else Replicate()
+            for p in rows]
+
+
+def local_call(fn, args, placements, out_placements, grad_placements=None):
+    """``fn`` on local tensors: each argument placed by its entry of
+    ``placements`` (``None``: passed as it is), its gradient by its entry
+    of ``grad_placements`` (default: as the forward), the outputs (a
+    tensor or a tuple) wrapped back as DTensors by ``out_placements``."""
+    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    grads = grad_placements or [None] * len(args)
+    local = [a if pl is None else to_local_as(a, mesh, pl, g)
+             for a, pl, g in zip(args, placements, grads, strict=True)]
+    out = fn(*local)
+    if isinstance(out, tuple):
+        return tuple(DTensor.from_local(o, mesh, pl, run_check=False)
+                     for o, pl in zip(out, out_placements, strict=True))
+    return DTensor.from_local(out, mesh, out_placements, run_check=False)
+
+
+def _model_axis(mesh) -> tuple[int | None, int]:
+    """(index, size) of the mesh's ``model`` axis; (None, 1) without."""
+    names = mesh.mesh_dim_names
+    if "model" not in names:
+        return None, 1
+    i = names.index("model")
+    return i, mesh.shape[i]
 
 
 # ---------------------------------------------------------------------------
@@ -145,8 +232,24 @@ class FusedAttention(torch.autograd.Function):
 
 def fused_attention(window: int, softcap: float, q, k, v, q_pos, kv_pos):
     """Attention through the region's kernels, differentiable in q, k, v
-    (the reference's ``layers.fused_attention``, with K/V unrepeated)."""
-    return FusedAttention.apply(q, k, v, q_pos, kv_pos, window, softcap)
+    (the reference's ``layers.fused_attention``, with K/V unrepeated).
+    DTensor inputs: the kernels run on each rank's batch rows and, where
+    the query and kv heads both divide the ``model`` axis, its heads."""
+    if not isinstance(q, DTensor):
+        return FusedAttention.apply(q, k, v, q_pos, kv_pos, window, softcap)
+    rows = batch_placements(q.device_mesh, q.shape[0])
+    heads = list(rows)
+    i, m = _model_axis(q.device_mesh)
+    if m > 1 and q.shape[2] % m == 0 and k.shape[2] % m == 0:
+        heads[i] = Shard(2)
+
+    def region(q, k, v, q_pos, kv_pos):
+        return FusedAttention.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), _aligned(q_pos),
+                                    _aligned(kv_pos), window, softcap)
+
+    return local_call(region, (q, k, v, q_pos, kv_pos),
+                      (heads, heads, heads, rows, rows), heads)
 
 
 # ---------------------------------------------------------------------------
@@ -167,11 +270,28 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n·hd) -> (B, S, n, hd).  On a mesh, where a projection's
+    column split does not fall on head boundaries (``n`` does not divide
+    that mesh axis: qwen3-4b's ``wk``, 8 heads of 80 over 16 ranks, puts 40
+    columns — half a head — on each), those columns are gathered first."""
+    if isinstance(t, DTensor):
+        mesh = t.device_mesh
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == t.ndim - 1
+              and n % mesh.shape[j] else p
+              for j, p in enumerate(t.placements)]
+        if pl != list(t.placements):
+            t = t.redistribute(mesh, pl)
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and 16-byte aligned, as the kernel reads position
     rows: a slice such as ``pos[:, t:t + 1]`` is contiguous but may start
     anywhere, so it is copied."""
     t = t.contiguous()
+    if is_fake(t):      # shapes only (the dry-run): no address to align
+        return t
     return t.clone() if t.data_ptr() % 16 else t
 
 
@@ -193,15 +313,17 @@ def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     b, s, _d = x.shape
     hd = cfg.hd
     cdt = _dt(cfg, "compute")
-    xq = (x @ p["wq"].to(cdt)).reshape(b, s, cfg.n_heads, hd)
-    xk = (x @ p["wk"].to(cdt)).reshape(b, s, cfg.n_kv_heads, hd)
-    xv = (x @ p["wv"].to(cdt)).reshape(b, s, cfg.n_kv_heads, hd)
+    xq = _split_heads(x @ p["wq"].to(cdt), cfg.n_heads, hd)
+    xk = _split_heads(x @ p["wk"].to(cdt), cfg.n_kv_heads, hd)
+    xv = _split_heads(x @ p["wv"].to(cdt), cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         xq = rmsnorm(p["q_norm"], xq, cfg.norm_eps)
         xk = rmsnorm(p["k_norm"], xk, cfg.norm_eps)
     xq = apply_rope(xq, positions, cfg.rope_theta)
     xk = apply_rope(xk, positions, cfg.rope_theta)
-    positions = _aligned(positions.to(torch.int32))
+    positions = positions.to(torch.int32)
+    if not isinstance(positions, DTensor):
+        positions = _aligned(positions)
 
     if kv_cache is None:
         if extra_mask is None:
@@ -213,6 +335,10 @@ def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 softcap=cfg.attn_logit_softcap, extra_mask=extra_mask)
         out = out.reshape(b, s, cfg.n_heads * hd)
         return out @ p["wo"].to(cdt), None
+    if isinstance(kv_cache["k"], DTensor):
+        out = _cached_attention_sharded(cfg, xq, xk, xv, positions, kv_cache)
+        out = out.reshape(b, s, cfg.n_heads * hd)
+        return out @ p["wo"].to(cdt), kv_cache
     k, v, kv_pos = kv_cache["k"], kv_cache["v"], kv_cache["pos"]
     if s == 1:
         idx = positions[:, 0].long() % k.shape[1]
@@ -229,6 +355,64 @@ def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
         softcap=cfg.attn_logit_softcap)
     out = out.reshape(b, s, cfg.n_heads * hd)
     return out @ p["wo"].to(cdt), kv_cache
+
+
+def _cached_attention_sharded(cfg: ModelConfig, xq, xk, xv, positions,
+                              kv_cache: dict):
+    """The cached attention on a mesh, the cache (B, S_max, KV, hd) placed
+    by ``cache_specs`` (batch on the dp axes, the sequence on ``model``):
+    each rank writes the new keys that fall in its slice of the sequence
+    into its shard in place (the ring slot ``position % S_max``, or a
+    prefill's block at 0), attends over its slice with the kernel, and the
+    ranks of the ``model`` axis merge their partial outputs by their
+    ``lse`` (flash-decode: an all-gather of the lse, an all-reduce of the
+    weighted outputs).  -> out (B, S, H, hd), batch-sharded as ``xq``."""
+    kc, vc, pc = kv_cache["k"], kv_cache["v"], kv_cache["pos"]
+    mesh = kc.device_mesh
+    rows = batch_placements(mesh, kc.shape[0])
+    i, m = _model_axis(mesh)
+    split = (i is not None and m > 1 and isinstance(kc.placements[i], Shard)
+             and kc.placements[i].dim == 1)
+    s_all = kc.shape[1]
+    k, v, kv_pos = kc.to_local(), vc.to_local(), pc.to_local()
+    s_loc = k.shape[1]
+    off = mesh.get_local_rank("model") * s_loc if split else 0
+    q, nk, nv, pos = (to_local_as(t, mesh, rows)
+                      for t in (xq, xk, xv, positions))
+    b, s = q.shape[:2]
+    if s == 1:
+        idx = pos[:, 0].long() % s_all - off
+        mine = (idx >= 0) & (idx < s_loc)
+        idx = idx.clamp(0, s_loc - 1)
+        bar = torch.arange(b, device=q.device)
+        for cache, new in ((k, nk[:, 0]), (v, nv[:, 0]),
+                           (kv_pos, pos[:, 0])):
+            keep = mine.reshape(-1, *[1] * (new.dim() - 1))
+            cache[bar, idx] = torch.where(keep, new.to(cache.dtype),
+                                          cache[bar, idx])
+    else:
+        n = min(max(s - off, 0), s_loc)
+        k[:, :n] = nk[:, off:off + n]
+        v[:, :n] = nv[:, off:off + n]
+        kv_pos[:, :n] = pos[:, off:off + n]
+    out, lse = ops.flash_attention(q, k, v, _aligned(pos), _aligned(kv_pos),
+                                   window=cfg.sliding_window,
+                                   softcap=cfg.attn_logit_softcap)
+    if split:
+        # (B, H, S) lse of every slice -> each slice's weight
+        stack = [Shard(1) if isinstance(pl, Shard) else Replicate()
+                 for pl in rows]
+        gathered = list(stack)
+        stack[i] = Shard(0)
+        lse_all = DTensor.from_local(lse[None], mesh, stack, run_check=False
+                                     ).redistribute(mesh, gathered).to_local()
+        w = torch.exp(lse - torch.logsumexp(lse_all, 0))
+        part = list(rows)
+        part[i] = Partial()
+        out = DTensor.from_local(
+            out.float() * w.permute(0, 2, 1)[..., None], mesh, part,
+            run_check=False).redistribute(mesh, rows).to_local().to(q.dtype)
+    return DTensor.from_local(out, mesh, rows, run_check=False)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, s_max: int,
@@ -261,9 +445,9 @@ def apply_cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     hd = cfg.hd
     cdt = _dt(cfg, "compute")
     img = image_embeds.to(cdt)
-    xq = (x @ p["wq"].to(cdt)).reshape(b, s, cfg.n_heads, hd)
-    xk = (img @ p["wk"].to(cdt)).reshape(b, t, cfg.n_kv_heads, hd)
-    xv = (img @ p["wv"].to(cdt)).reshape(b, t, cfg.n_kv_heads, hd)
+    xq = _split_heads(x @ p["wq"].to(cdt), cfg.n_heads, hd)
+    xk = _split_heads(img @ p["wk"].to(cdt), cfg.n_kv_heads, hd)
+    xv = _split_heads(img @ p["wv"].to(cdt), cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         xq = rmsnorm(p["q_norm"], xq, cfg.norm_eps)
         xk = rmsnorm(p["k_norm"], xk, cfg.norm_eps)
@@ -304,8 +488,19 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def embed(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of the table at the compute type (gathered, then cast)."""
-    return p["table"][tokens].to(_dt(cfg, "compute"))
+    """Rows of the table at the compute type (gathered, then cast).  On a
+    mesh each rank gathers its rows from the whole table: DTensor's
+    ``index_put`` rule (the gather's backward) fails in torch 2.11."""
+    cdt = _dt(cfg, "compute")
+    table = p["table"]
+    if not isinstance(table, DTensor):
+        return table[tokens].to(cdt)
+    mesh = table.device_mesh
+    rows = batch_placements(mesh, tokens.shape[0])
+    full = [Replicate()] * mesh.ndim
+    return local_call(lambda t, tok: t[tok].to(cdt), (table, tokens),
+                      (full, rows), rows,
+                      grad_placements=(row_partial(rows), None))
 
 
 def unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

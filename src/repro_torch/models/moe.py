@@ -13,9 +13,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from .config import ModelConfig
-from .layers import _dt, apply_mlp, dense_init, init_mlp
+from .layers import (_dt, apply_mlp, batch_placements, dense_init, init_mlp,
+                     to_local_as)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -39,7 +41,54 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux loss).
+    """x: (B, S, D) -> (out, aux loss); on a mesh see
+    :func:`_apply_moe_sharded`."""
+    if isinstance(x, DTensor):
+        return _apply_moe_sharded(p, cfg, x)
+    return _apply_moe(p, cfg, x)
+
+
+def _apply_moe_sharded(p: dict, cfg: ModelConfig, x: DTensor):
+    """The layer on a mesh.  The dispatch (``topk``, a stable ``sort``, a
+    ``cumsum``, ``index_copy`` and ``gather`` over every token of the
+    global batch, whose capacity and drops depend on all of them) has no
+    DTensor sharding rule that keeps the one-device result, so every rank
+    routes and combines all the tokens, gathered, on local tensors; the
+    experts' products run as DTensor products on the ``(E, C, D)``
+    buffers with the expert weights where the sharding rules put them, and
+    the shared experts on the DTensor input.  Each rank keeps its batch
+    rows of the output."""
+    mesh = x.device_mesh
+    full = [Replicate()] * mesh.ndim
+
+    def experts(_p, xe, cdt):
+        xe = DTensor.from_local(xe, mesh, full, run_check=False)
+        return to_local_as(_experts(p, xe, cdt), mesh, full)
+
+    out, aux = _apply_moe({"router": to_local_as(p["router"], mesh, full)},
+                          cfg, to_local_as(x, mesh, full), experts=experts,
+                          shared=False)
+    out = DTensor.from_local(out, mesh, full, run_check=False).redistribute(
+        mesh, batch_placements(mesh, x.shape[0]))
+    if cfg.n_shared_experts:
+        out = out + apply_mlp(p["shared"], cfg, x)
+    return out, DTensor.from_local(aux, mesh, full, run_check=False)
+
+
+def _experts(p: dict, xe: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """(E, C, D) expert buffers -> (E·C, D) outputs: every expert's
+    SwiGLU as batched products."""
+    e, c, d = xe.shape
+    g = F.silu(torch.bmm(xe, p["w_gate"].to(cdt)))
+    u = torch.bmm(xe, p["w_up"].to(cdt))
+    return torch.bmm(g * u, p["w_down"].to(cdt)).reshape(e * c, d)
+
+
+def _apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+               experts=_experts, shared: bool = True
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out, aux loss); ``experts(p, buffers, cdt)`` runs
+    the routed experts, ``shared`` adds the shared ones.
 
     The router in float32: softmax, top-k, the k gates renormalised.  The
     T·K (token, expert) pairs are sorted stably by expert; a pair's rank
@@ -64,13 +113,24 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor
     gate_vals, gate_idx = torch.topk(probs, k_top, -1)     # (T, K)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
 
+    # load-balancing aux loss (Switch): E * sum(mean prob * top-1 share);
+    # taken before the experts: a remat recompute stops after the last
+    # tensor the backward needs, and taken last the aux kept it running
+    # through the shared experts' output product, which the reference's
+    # recompute leaves out
+    top1 = (gate_idx[:, :1] == torch.arange(e, device=dev)).float()
+    aux = e * torch.sum(probs.mean(0) * top1.mean(0))
+
     capacity = max(int(cfg.capacity_factor * n_tok * k_top / e), 4)
     expert_flat = gate_idx.reshape(tk)
     token_flat = torch.arange(n_tok, device=dev).repeat_interleave(k_top)
     # stable sort by expert; the rank within an expert = index - offset
     order = torch.sort(expert_flat, stable=True).indices
     e_sorted = expert_flat[order]
-    counts = torch.bincount(expert_flat, minlength=e)
+    # a fixed-size count (``bincount``'s size depends on the data, which
+    # fake tensors cannot give)
+    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
+        0, expert_flat, torch.ones_like(expert_flat))
     offsets = torch.cumsum(counts, 0) - counts
     pos = torch.arange(tk, device=dev) - offsets[e_sorted]
     keep = pos < capacity
@@ -81,10 +141,7 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor
     rows = torch.where(keep, dest, e * capacity)
     xe = torch.zeros((e * capacity + 1, d), dtype=cdt, device=dev) \
         .index_copy(0, rows, xt.to(cdt)[token_flat[order]] * keep_c)
-    xe = xe[:-1].reshape(e, capacity, d)
-    g = F.silu(torch.bmm(xe, p["w_gate"].to(cdt)))
-    u = torch.bmm(xe, p["w_up"].to(cdt))
-    ye = torch.bmm(g * u, p["w_down"].to(cdt)).reshape(e * capacity, d)
+    ye = experts(p, xe[:-1].reshape(e, capacity, d), cdt)
     # each pair's gated output, back in (token, k) order, then summed per
     # token in ascending-expert order
     contrib = ye[dest] * (gate_vals.reshape(tk)[order][:, None].to(cdt)
@@ -99,10 +156,7 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor
         out = out + contrib[:, j]
     out = out.reshape(b, s, d)
 
-    if cfg.n_shared_experts:
+    if shared and cfg.n_shared_experts:
         out = out + apply_mlp(p["shared"], cfg, x)
 
-    # load-balancing aux loss (Switch): E * sum(mean prob * top-1 share)
-    top1 = F.one_hot(gate_idx[:, 0], e).float()
-    aux = e * torch.sum(probs.mean(0) * top1.mean(0))
     return out, aux

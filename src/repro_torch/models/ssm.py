@@ -23,9 +23,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from .config import ModelConfig
-from .layers import _dt, dense_init
+from .layers import (_dt, batch_placements, dense_init, local_call,
+                     row_partial)
 
 A_INIT_RANGE = (1.0, 16.0)
 
@@ -130,11 +132,55 @@ def apply_ssm(p: dict, cfg: ModelConfig, u: torch.Tensor, *,
     kw − 1, conv_dim)}``, is **updated in place** and returned (a prefill
     shorter than ``kw − 1`` keeps the old conv window, as the
     reference)."""
-    b, s, _d = u.shape
+    cdt = _dt(cfg, "compute")
+    proj = u @ p["w_in"].to(cdt)                          # (B,S,2di+2ds+nh)
+    if isinstance(proj, DTensor) and ssm_cache is None:
+        yn = _mixer_sharded(p, cfg, proj, valid)
+    else:
+        yn = _mixer(p, cfg, proj, ssm_cache, valid)
+    return yn @ p["w_out"].to(cdt), ssm_cache
+
+
+#: the mixer's parameters besides the projections
+_MIXER_KEYS = ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip")
+
+
+def _mixer_sharded(p: dict, cfg: ModelConfig, proj: DTensor, valid):
+    """:func:`_mixer` on a mesh, without a cache (training, a prefill):
+    on each rank's batch rows, the projection's columns and the mixer's
+    small parameters gathered (their gradients a ``Partial`` sum over the
+    ranks that split the rows).  Run as DTensor ops, the SSD's 5-axis
+    intermediates made DTensor's redistribution planner the step's largest
+    cost (16 of 25 s for mamba2's smoke config on a fake (4, 2) mesh), and
+    a view of the split projection failed DTensor's propagation in torch
+    2.11; the chunk recurrence is per sequence, so each rank's rows are
+    independent."""
+    mesh = proj.device_mesh
+    rows = batch_placements(mesh, proj.shape[0])
+    full = [Replicate()] * mesh.ndim
+    leaves = [p[k] for k in _MIXER_KEYS] + [p["norm"]["scale"]]
+
+    def region(proj, valid, *leaves):
+        q = dict(zip(_MIXER_KEYS, leaves[:-1], strict=True))
+        q["norm"] = {"scale": leaves[-1]}
+        return _mixer(q, cfg, proj, None, valid)
+
+    return local_call(region, (proj, valid, *leaves),
+                      (rows, None if valid is None else rows,
+                       *[full] * len(leaves)), rows,
+                      grad_placements=(None, None, *[row_partial(rows)]
+                                       * len(leaves)))
+
+
+def _mixer(p: dict, cfg: ModelConfig, proj: torch.Tensor,
+           ssm_cache: dict | None, valid: torch.Tensor | None
+           ) -> torch.Tensor:
+    """The block between its projections: (B, S, 2di + 2ds + nh) -> the
+    gated-normed (B, S, di); the cache, if any, written in place."""
+    b, s, _n = proj.shape
     cdt = _dt(cfg, "compute")
     di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
-    proj = u @ p["w_in"].to(cdt)                          # (B,S,2di+2ds+nh)
     z, xbc, dt_raw = torch.split(proj, [di, di + 2 * ds, nh], -1)
 
     conv_w = p["conv_w"].to(cdt)
@@ -150,7 +196,8 @@ def apply_ssm(p: dict, cfg: ModelConfig, u: torch.Tensor, *,
             if valid is not None:
                 # the window of the last kw-1 valid inputs
                 start = valid.int().sum(1)                # (B,)
-                idx = start[:, None] + torch.arange(kw - 1, device=u.device)
+                idx = start[:, None] + torch.arange(kw - 1,
+                                                    device=proj.device)
                 new_conv = padded.gather(1, idx[..., None].expand(
                     -1, -1, padded.shape[-1]))
             else:
@@ -183,13 +230,11 @@ def apply_ssm(p: dict, cfg: ModelConfig, u: torch.Tensor, *,
     var = yz.square().mean(-1, keepdim=True)
     yn = (yz * torch.rsqrt(var + cfg.norm_eps)
           * p["norm"]["scale"].float()).to(cdt)
-    out = yn @ p["w_out"].to(cdt)
-    if ssm_cache is None:
-        return out, None
-    ssm_cache["state"].copy_(new_state)
-    if new_conv is not None:
-        ssm_cache["conv"].copy_(new_conv)
-    return out, ssm_cache
+    if ssm_cache is not None:
+        ssm_cache["state"].copy_(new_state)
+        if new_conv is not None:
+            ssm_cache["conv"].copy_(new_conv)
+    return yn
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:

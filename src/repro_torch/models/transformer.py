@@ -33,6 +33,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
 
 from . import layers as L
@@ -268,23 +269,38 @@ class _TokenNLL(torch.autograd.Function):
         return grad, None
 
 
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor):
+    """-> (per-token NLL, float32 argmax hits) of (B, S, V) logits."""
+    nll = _TokenNLL.apply(logits, labels)
+    with torch.no_grad():
+        hits = (logits.argmax(-1) == labels).to(torch.float32)
+    return nll, hits
+
+
 def loss_fn(params, cfg: ModelConfig, batch: dict
             ) -> tuple[torch.Tensor, dict]:
     """Causal LM loss (the reference's): mean over ``loss_mask`` (ones when
     absent) of ``logsumexp(logits) - logits[label]`` -> (loss, {"loss",
     "accuracy", "tokens"}), 0-d float32 tensors; accuracy is the masked
-    share of argmax hits, tokens the mask's sum."""
+    share of argmax hits, tokens the mask's sum.  Under a mesh the NLL and
+    the hits are taken on each rank's rows of the logits, gathered over the
+    vocabulary (:func:`layers.local_call`)."""
     logits = forward(params, cfg, batch)
     labels = batch["labels"].long()
     mask = batch.get("loss_mask")
     mask = (torch.ones(labels.shape, dtype=torch.float32,
                        device=logits.device) if mask is None
             else mask.to(torch.float32))
-    nll = _TokenNLL.apply(logits, labels) * mask
+    if isinstance(logits, DTensor):
+        rows = L.batch_placements(logits.device_mesh, logits.shape[0])
+        nll, hits = L.local_call(_token_nll, (logits, labels), (rows, rows),
+                                 (rows, rows))
+    else:
+        nll, hits = _token_nll(logits, labels)
+    nll = nll * mask
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = nll.sum() / denom
     with torch.no_grad():
-        hits = (logits.argmax(-1) == labels).to(torch.float32)
         acc = (hits * mask).sum() / denom
     return loss, {"loss": loss.detach(), "accuracy": acc,
                   "tokens": mask.sum()}

@@ -17,9 +17,9 @@ from .optim import leaf_groups, leaves_like, tree_leaves, tree_map
 
 
 def ef_init(params):
-    """Zero float32 residuals shaped as the parameters."""
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    """Zero float32 residuals shaped and placed as the parameters."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -24,6 +24,8 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from ..models.transformer import STACKED
 
@@ -149,8 +151,9 @@ def clip_by_global_norm_(leaves, max_norm: float) -> torch.Tensor:
 # AdamW
 # ---------------------------------------------------------------------------
 def adamw_init(params) -> dict:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    """Zero float32 moments with each parameter's placements (a DTensor
+    parameter gets a DTensor moment), a zero count."""
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     dev = tree_leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -192,22 +195,48 @@ def _slot_shape(shape) -> dict:
     return {"v": shape}
 
 
+def _slot_placements(p: DTensor, kind: str, stacked: bool) -> list:
+    """A DTensor parameter's placements carried to its Adafactor slot: the
+    slot keeps the sharding of the axes it keeps (``vr`` drops the last
+    axis, ``vc`` the one before it, ``v`` none), shifted by the stacked
+    layer axis; a dropped axis's sharding becomes ``Replicate``."""
+    n = p.dim()
+    gone = {"vr": n - 1, "vc": n - 2}.get(kind)
+    out = []
+    for pl in p.placements:
+        if not isinstance(pl, Shard) or pl.dim == gone:
+            out.append(Replicate())
+        else:
+            d = pl.dim - (1 if gone is not None and pl.dim > gone else 0)
+            out.append(Shard(d + int(stacked)))
+    return out
+
+
 def adafactor_init(params) -> dict:
     """Slots of the reference's leaves: ``{"vr", "vc"}`` for a leaf of two
     or more axes (the blocks' leaves stacked: ``(L, *shape)``), else
     ``{"v"}``; nested as the parameters, with ``"blocks"`` (and
-    ``"cross_blocks"``) one dict of stacked slots as in the reference."""
+    ``"cross_blocks"``) one dict of stacked slots as in the reference.  A
+    DTensor parameter's slots are DTensors on its mesh
+    (:func:`_slot_placements`)."""
     slots: dict = {}
     for path, group in leaf_groups(params):
         shape = tuple(group[0].shape)
-        if path[0] in STACKED:
+        stacked = path[0] in STACKED
+        if stacked:
             shape = (len(group), *shape)
         node = slots
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = {
-            k: torch.zeros(s, dtype=torch.float32, device=group[0].device)
-            for k, s in _slot_shape(shape).items()}
+        node[path[-1]] = {}
+        for k, s in _slot_shape(shape).items():
+            z = torch.zeros(s, dtype=torch.float32, device=group[0].device)
+            if isinstance(group[0], DTensor):
+                z = distribute_tensor(
+                    z, group[0].device_mesh,
+                    _slot_placements(group[0], k, stacked),
+                    src_data_rank=None)
+            node[path[-1]][k] = z
     dev = tree_leaves(params)[0].device
     return {"slots": slots,
             "count": torch.zeros((), dtype=torch.int32, device=dev)}

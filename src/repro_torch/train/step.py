@@ -18,11 +18,25 @@ compression (``grad_compression="int8_ef"``), clipping by the global norm,
 ``cosine_lr(step)`` and the optimizer, each in place one leaf at a time.
 Metrics are 0-d tensors on the device: loss, accuracy, tokens, grad_norm,
 lr.
+
+**On a mesh** the state and the batch are DTensors placed by
+``launch/sharding.py`` (the launcher distributes them) and the same step
+runs under ``implicit_replication`` (a plain tensor made inside the model,
+such as the positions, counts as replicated).  Every buffer it makes
+(``zeros_like``) keeps its parameter's placements, and the norm, the int8
+scale and the metrics are the global ones: DTensor reduces a ``Partial``
+sum or max by an all-reduce.  Microbatch ``i`` is the reference's row
+block ``[i·b/n, (i+1)·b/n)`` of the global batch: each batch leaf is
+all-gathered once (``b × s`` integers: no parameter traffic) and the block
+re-split over the data-parallel ranks by the leaf's placements.  Metrics
+come back replicated.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..core.simulator import resolve_device
 from ..models import transformer as T
@@ -42,17 +56,36 @@ def init_state(gen: torch.Generator, cfg: ModelConfig, tc: TrainConfig,
                          f"is wanted on {dev}")
     params = T.init_params(gen, cfg)
     opt_init, _ = O.make_optimizer(cfg.optimizer)
+    # a 0-d tensor made from a Python int: under FakeTensorMode (the
+    # dry-run) it keeps its value, so ``int(step)`` still reads it
     state = {"params": params, "opt": opt_init(params),
-             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+             "step": torch.tensor(0, dtype=torch.int32, device=dev)}
     if tc.grad_compression == "int8_ef":
         state["ef"] = C.ef_init(params)
     return state
 
 
 def _device_batch(batch: dict, device: torch.device) -> dict:
-    return {k: (torch.from_numpy(np.array(v, order="C"))
-                if isinstance(v, np.ndarray) else v).to(device)
+    """numpy arrays to tensors on ``device``; DTensors stay where they
+    are."""
+    return {k: v if isinstance(v, DTensor) else
+            (torch.from_numpy(np.array(v, order="C"))
+             if isinstance(v, np.ndarray) else v).to(device)
             for k, v in batch.items()}
+
+
+def _rows(v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Rows ``lo:hi`` of a batch leaf; a DTensor's are gathered, cut and
+    placed as the leaf (no sharding rule cuts a sharded axis in place)."""
+    if not isinstance(v, DTensor):
+        return v[lo:hi]
+    return distribute_tensor(v.full_tensor()[lo:hi], v.device_mesh,
+                             v.placements, src_data_rank=None)
+
+
+def _global(v):
+    """A metric as a plain tensor: a DTensor's full (replicated) value."""
+    return v.full_tensor() if isinstance(v, DTensor) else v
 
 
 def _grads(params, leaves, cfg: ModelConfig, batch: dict):
@@ -87,11 +120,10 @@ def accumulate_grads(params, cfg: ModelConfig, tc: TrainConfig,
     if b % n:
         raise ValueError(f"batch {b} not divisible by {n} microbatches")
     per = b // n
-    grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for p in leaves]
+    grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
     metrics = None
     for i in range(n):
-        mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+        mb = {k: _rows(v, i * per, (i + 1) * per) for k, v in batch.items()}
         g, m = _grads(params, leaves, cfg, mb)
         with torch.no_grad():
             for acc, x in zip(grads, g, strict=True):
@@ -119,7 +151,7 @@ def apply_update(state: dict, grads: list, cfg: ModelConfig,
     elif tc.grad_compression != "none":
         raise ValueError(f"unknown grad_compression {tc.grad_compression!r}")
     gnorm = O.clip_by_global_norm_(grads, tc.grad_clip)
-    lr = O.cosine_lr(int(state["step"]), base_lr=tc.learning_rate,
+    lr = O.cosine_lr(int(_global(state["step"])), base_lr=tc.learning_rate,
                      warmup=tc.warmup_steps, total=tc.total_steps)
     _, opt_update = O.make_optimizer(cfg.optimizer)
     if cfg.optimizer == "adamw":
@@ -134,11 +166,13 @@ def apply_update(state: dict, grads: list, cfg: ModelConfig,
 
 def build_train_step(cfg: ModelConfig, tc: TrainConfig):
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
-        grads, metrics = accumulate_grads(state["params"], cfg, tc, batch)
-        gnorm, lr = apply_update(state, grads, cfg, tc)
-        del grads
-        metrics = dict(metrics)
-        metrics["grad_norm"] = gnorm
+        with implicit_replication():
+            grads, metrics = accumulate_grads(state["params"], cfg, tc,
+                                              batch)
+            gnorm, lr = apply_update(state, grads, cfg, tc)
+            del grads
+            metrics = {k: _global(v) for k, v in metrics.items()}
+        metrics["grad_norm"] = _global(gnorm)
         metrics["lr"] = torch.tensor(lr, dtype=torch.float32)
         return state, metrics
 
@@ -150,8 +184,8 @@ def build_eval_step(cfg: ModelConfig):
 
     def eval_step(params, batch: dict) -> dict:
         dev = O.tree_leaves(params)[0].device
-        with torch.no_grad():
+        with torch.no_grad(), implicit_replication():
             _loss, metrics = T.loss_fn(params, cfg, _device_batch(batch, dev))
-        return metrics
+            return {k: _global(v) for k, v in metrics.items()}
 
     return eval_step
