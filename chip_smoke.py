@@ -23,9 +23,10 @@ through its entry point.  The fourth serves the decoder LM: the uncut
 ``configs/qwen3_4b.py`` (36 layers, d_model 2560, 32 / 8 heads of 80,
 vocab 151936; random bf16 weights from a seeded generator) behind
 ``ServeEngine`` with four slots of 4096 tokens, every layer's attention on
-the hand-written ``flash_attention`` kernel; then the MoE, hybrid and SSM
-families at full width behind the same engine, the cross-attention VLM and
-the audio decoder.
+the hand-written ``flash_attention`` kernel, each decode step one replay
+of a CUDA graph of ``decode_step`` (``serve/graph.py``); then the MoE,
+hybrid, SSM and audio families at full width behind the same engine and
+the cross-attention VLM's ``decode_step`` replayed from a graph.
 Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
@@ -65,11 +66,16 @@ Phases:
     kernels); then 9 requests (prompts of
     256–2048 tokens, 32 new tokens each, 8 greedy + 1 at temperature 1)
     through ``ServeEngine`` on qwen3-4b at full width — one kernel launch
-    per layer per prefill and per decode step — the engine's prefill
-    logits against ``forward``, greedy agreement with a teacher-forced
-    ``forward``, one merge per layer per decode step; and the same weights
-    cut to 2 layers in float32 (TF32 off), card (kernel) against CPU
-    (plain) ``forward`` logits;
+    per layer per prefill and per decode step, the decode steps replays
+    of the engine's CUDA graph (their launches counted from the capture)
+    — the engine's prefill logits against ``forward``, greedy agreement
+    with a teacher-forced ``forward``, one merge per layer per decode
+    step; then four greedy requests decoded ``GRAPH_STEPS`` steps by the
+    graph and, from a copy of the same caches, by an eager ``decode_step``
+    loop in turns: the same greedy tokens step for step, the largest logit
+    difference, ms per step of each and the peak memory; and the same
+    weights cut to 2 layers in float32 (TF32 off), card (kernel) against
+    CPU (plain) ``forward`` logits;
 12. the rest of the characterization (``characterization_path``, run
     before the serving path): the bloom probe / insert fan-in sweep
     (fan-in 2-16, 2,000 trials, 8192-bit rows) held to the
@@ -118,19 +124,24 @@ Phases:
     uninterrupted run;
 17. the other families (``arch_serve_path``, after ``serve_path``):
     qwen2-moe-a2.7b (MoE, 14.3·10⁹ parameters), hymba-1.5b (hybrid
-    attention + SSM, a 2048-key window) and mamba2-780m (SSM) uncut in
-    bf16 behind ``ServeEngine`` (4 slots x 4096, the float32 cache; hymba's
-    ring 2048 slots): 6 requests of 16 new tokens (one at temperature 1),
-    ``n_layers`` attention launches per prefill and decode step (none for
-    mamba2), the prefill logits against ``forward``, the greedy agreement
-    with a teacher-forced ``forward``, walls, tok/s, decode ms per step
-    (qwen2-moe's beside its bytes floor) and peak bytes; each family cut
-    to 2 layers in float32, card against CPU (≤ 1e-4); llama-3.2-vision-90b
-    cut to 10 layers (every width kept): ``forward`` with 1024 image
-    embeddings over a 512-token prompt, then ``decode_step`` with them,
-    teacher-forced against ``forward``, the cross blocks launching the
-    kernel, and its float32 2-layer (one self, one cross block) card-vs-CPU
-    check; musicgen-medium uncut: one ``forward`` from frame embeddings.
+    attention + SSM, a 2048-key window), mamba2-780m (SSM) and
+    musicgen-medium (the audio decoder, vocabulary 2048) uncut in bf16
+    behind ``ServeEngine`` (4 slots x 4096, the float32 cache; hymba's
+    ring 2048 slots; decode graphed): 6 requests of 16 new tokens (one at
+    temperature 1), ``n_layers`` attention launches per prefill and decode
+    step (none for mamba2), the prefill logits against ``forward``, the
+    greedy agreement with a teacher-forced ``forward``, walls, tok/s,
+    decode ms per step (qwen2-moe's beside its bytes floor) and peak
+    bytes, the graph against the eager loop as for qwen3-4b; each family
+    cut to 2 layers in float32, card against CPU (≤ 1e-4);
+    llama-3.2-vision-90b cut to 10 layers (every width kept): ``forward``
+    with 1024 image embeddings over a 512-token prompt, then
+    ``decode_step`` with them — the prompt eagerly, then the steps as
+    replays of a ``DecodeGraph`` with the image embeddings as a static
+    input — teacher-forced against ``forward``, the cross blocks launching
+    the kernel, and its float32 2-layer (one self, one cross block)
+    card-vs-CPU check; musicgen-medium: one ``forward`` from frame
+    embeddings on the served weights.
     Phase 3 holds the attention kernel to its plain version at these
     families' shapes too (hymba's prefill and decode, qwen2-moe's hd 128
     MHA, the VLM's non-causal cross-attention over 1024 keys).
@@ -206,7 +217,9 @@ SERVE_PROMPTS = (256, 2048)
 #: in src/repro/configs, uncut, bf16), behind the same engine: requests
 #: (the last at temperature 1) and new tokens each
 ARCH_SERVE, ARCH_REQUESTS, ARCH_NEW = (
-    "qwen2-moe-a2.7b", "hymba-1.5b", "mamba2-780m"), 6, 16
+    "qwen2-moe-a2.7b", "hymba-1.5b", "mamba2-780m", "musicgen-medium"), 6, 16
+#: decode steps of the graph-against-eager check of each served model
+GRAPH_STEPS = 16
 #: hymba-1.5b's sliding window: its KV ring's slots
 HYMBA_WINDOW = 2048
 #: the attention kernel's shapes of those families (check_flash_attention)
@@ -1685,9 +1698,11 @@ def _ptxas_summary(log: str) -> list[str]:
 def serve_path(counts: Counts, card: str) -> tuple[dict, dict]:
     """qwen3-4b at full width behind ``ServeEngine`` (4 slots x 4096, the
     float32 cache): 9 requests, 32 new tokens each, one kernel launch per
-    layer per prefill and per decode step; then the engine's prefill
-    logits against ``forward`` and the greedy agreement with a
-    teacher-forced ``forward``.  -> (numbers, the served parameters)."""
+    layer per prefill and per decode step (each step one replay of the
+    engine's graph); then the engine's prefill logits against ``forward``,
+    the greedy agreement with a teacher-forced ``forward`` and the graph
+    against the eager loop (:func:`_graph_vs_eager`).  -> (numbers, the
+    served parameters)."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ServeEngine, _prefill_fn
@@ -1700,8 +1715,11 @@ def serve_path(counts: Counts, card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     walls["init_params_s"] = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
+    t1 = time.perf_counter()
     eng = ServeEngine(cfg, params, n_slots=SERVE_SLOTS,
                       max_len=SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    walls["engine_with_graph_s"] = time.perf_counter() - t1
     rng = np.random.default_rng(0)
     lens = rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1, 9)
     prompts = [rng.integers(2, cfg.vocab, int(n)).tolist() for n in lens]
@@ -1766,8 +1784,9 @@ def serve_path(counts: Counts, card: str) -> tuple[dict, dict]:
         total += len(r.out_tokens)
         del logits
     out["greedy_agreement"] = agree / total
+    out["graph_vs_eager"] = _graph_vs_eager(eng, prompts)
     walls["checks_s"] = time.perf_counter() - t0 - walls["init_params_s"] \
-        - wall
+        - walls["engine_with_graph_s"] - wall
     out["walls"] = walls
     print(f"[serve] {SERVE_ARCH} full width ({n_params} parameters, bf16) on "
           f"{card}: {n_pre} prefills + {n_dec} decode steps, "
@@ -1781,7 +1800,71 @@ def serve_path(counts: Counts, card: str) -> tuple[dict, dict]:
     print(f"[serve] engine prefill vs forward: {rel} of the largest logit; "
           f"greedy agreement with a teacher-forced forward {agree}/{total}",
           flush=True)
+    _print_graph(SERVE_ARCH, out["graph_vs_eager"], walls)
     return out, params
+
+
+def _graph_vs_eager(eng, prompts) -> dict:
+    """The engine's graphed decode against an eager ``decode_step`` loop
+    from the same state: four greedy requests admitted into the engine's
+    slots (its prefills), a copy of its caches taken, then ``GRAPH_STEPS``
+    steps of each in turns — the engine's step (one replay, one host read
+    of the greedy tokens) and ``decode_step`` on the copy with a host read
+    per slot (what the engine ran before the graph).  The greedy tokens
+    must be equal step for step; the largest logit difference is printed
+    (0 expected: the same kernels see the same inputs).  ms per step of
+    each (host clock, ending at the last host read); then the device time
+    of one replay alone (``serve_profile.replay_ms``) and the card's SM
+    clock, temperature and power draw; the peak memory of the engine with
+    its graph and the copy."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve_profile import clocks, replay_ms
+    torch.cuda.reset_peak_memory_stats()
+    for p in prompts[:SERVE_SLOTS]:
+        eng.submit(p, max_new_tokens=GRAPH_STEPS + 1)
+    eng._admit()
+    caches = [{k: {n: t.clone() for n, t in part.items()}
+               for k, part in c.items()} for c in eng.caches]
+    toks, pos = eng.slot_next.copy(), eng.slot_pos.copy()
+    graph_ms, eager_ms, worst, same = [], [], 0.0, 0
+    for _ in range(GRAPH_STEPS):
+        eng.step()
+        graph_ms.append(1e3 * eng.decode_s[-1])
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            logits, caches = T.decode_step(
+                eng.params, eng.cfg,
+                torch.from_numpy(toks[:, None].astype(np.int64)).cuda(),
+                caches, torch.from_numpy(pos[:, None]).cuda())
+        nxt = np.array([int(torch.argmax(logits[i, 0]))
+                        for i in range(SERVE_SLOTS)], dtype=np.int32)
+        eager_ms.append(1e3 * (time.perf_counter() - t1))
+        worst = max(worst, float((logits - eng.graph.logits).abs().max()))
+        same += int(np.array_equal(nxt, eng.slot_next))
+        toks, pos = nxt, pos + 1
+    assert not eng.queue and all(r is None for r in eng.slot_req)
+    assert same == GRAPH_STEPS, (same, GRAPH_STEPS)
+    g, e = sorted(graph_ms), sorted(eager_ms)
+    return {"steps": GRAPH_STEPS, "tokens_equal_steps": same,
+            "max_abs_logit_diff": worst, "per_replay": eng.graph.per_replay,
+            "graph_ms_median": g[len(g) // 2], "graph_ms_range": [g[0], g[-1]],
+            "eager_ms_median": e[len(e) // 2], "eager_ms_range": [e[0], e[-1]],
+            "replay_ms": replay_ms(eng.graph.graph), "clocks": clocks(),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _print_graph(arch: str, r: dict, walls: dict) -> None:
+    print(f"[graph] {arch}: decode through one CUDA graph replay a step "
+          f"(engine with its graph built in {walls['engine_with_graph_s']} "
+          f"s; per replay {r['per_replay']}): {r['steps']} steps, greedy "
+          f"tokens equal to the eager decode_step loop on "
+          f"{r['tokens_equal_steps']}, largest logit difference "
+          f"{r['max_abs_logit_diff']}; graphed ms per step median "
+          f"{r['graph_ms_median']} ({r['graph_ms_range'][0]}-"
+          f"{r['graph_ms_range'][1]}), eager {r['eager_ms_median']} "
+          f"({r['eager_ms_range'][0]}-{r['eager_ms_range'][1]}); one replay "
+          f"{r['replay_ms']} ms on the device (SM clock, temperature, power "
+          f"{r['clocks']}); peak {r['peak_bytes']} B", flush=True)
 
 
 def _leaves(tree):
@@ -1851,7 +1934,8 @@ def _serve_arch(counts: Counts, card: str, arch: str) -> tuple[dict, dict]:
     per layer per split decode step; the engine's prefill logits against
     ``forward``'s; the greedy agreement with a teacher-forced ``forward``
     (held for hymba and mamba2; printed only for the MoE, whose capacity
-    depends on the token count).  qwen2-moe's decode step is printed
+    depends on the token count); the graph against the eager loop
+    (:func:`_graph_vs_eager`).  qwen2-moe's decode step is printed
     beside its bytes floor: the reference's dispatch multiplies all 60
     experts every step.  -> (numbers, parameters)."""
     from repro_torch.configs import get_config
@@ -1866,8 +1950,11 @@ def _serve_arch(counts: Counts, card: str, arch: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
+    t1 = time.perf_counter()
     eng = ServeEngine(cfg, params, n_slots=SERVE_SLOTS,
                       max_len=SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    walls = {"engine_with_graph_s": time.perf_counter() - t1}
     rng = np.random.default_rng(0)
     lens = rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
                         ARCH_REQUESTS)
@@ -1944,6 +2031,8 @@ def _serve_arch(counts: Counts, card: str, arch: str) -> tuple[dict, dict]:
         total += len(r.out_tokens)
         del logits
     out["greedy_agreement"] = agree / total
+    out["graph_vs_eager"] = _graph_vs_eager(eng, prompts)
+    out["engine_with_graph_s"] = walls["engine_with_graph_s"]
     if cfg.moe:
         del eng
         torch.cuda.empty_cache()
@@ -1961,6 +2050,7 @@ def _serve_arch(counts: Counts, card: str, arch: str) -> tuple[dict, dict]:
           + (f" (bytes floor {out['decode_floor_ms']})" if cfg.moe else "")
           + f"; peak {peak} B; prefill vs forward {rel}; greedy agreement "
           f"{agree}/{total}", flush=True)
+    _print_graph(arch, out["graph_vs_eager"], walls)
     return out, params
 
 
@@ -2056,13 +2146,16 @@ def _vlm(counts: Counts, card: str) -> dict:
     tokens with 1024 image embeddings (10 launches: the 8 self blocks and
     the 2 cross blocks), then ``decode_step`` with the image embeddings —
     the prompt into the caches (one S = 512 call, which writes the block
-    at 0, as the reference's), then 8 teacher-forced steps — each step's
-    logits against ``forward``'s at its position (bf16: within 5e-2 of the
-    largest logit; a wrong cache or a skipped cross block moves them by
-    the logits' own size).  Then the float32 card-vs-CPU check."""
+    at 0, as the reference's), then 8 teacher-forced steps, each one
+    replay of a ``DecodeGraph`` captured before the prompt went in, the
+    image embeddings a static input — each step's logits against
+    ``forward``'s at its position (bf16: within 5e-2 of the largest logit;
+    a wrong cache or a skipped cross block moves them by the logits' own
+    size).  Then the float32 card-vs-CPU check."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import transformer as T
+    from repro_torch.serve.graph import DecodeGraph
     cfg = get_config(VLM_ARCH).replace(n_layers=VLM_LAYERS)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -2081,6 +2174,9 @@ def _vlm(counts: Counts, card: str) -> dict:
         sum(c.values()) == cfg.n_layers, c
     fwd_s = counts.wall_s["vlm_forward"]
     caches = T.init_caches(cfg, 1, 2 * VLM_PROMPT, dtype=torch.float32)
+    # captured before the prompt goes in (its warm-up undone)
+    graph = DecodeGraph(params, cfg, caches, 1, device="cuda",
+                        image_embeds=img)
     pos = torch.arange(s, dtype=torch.int32, device="cuda")[None]
     counts.reset()
     _lg, caches = T.decode_step(params, cfg, toks[:, :VLM_PROMPT], caches,
@@ -2088,16 +2184,16 @@ def _vlm(counts: Counts, card: str) -> dict:
     steps, worst, agree = [], 0.0, 0
     for t in range(VLM_PROMPT, s):
         t1 = time.perf_counter()
-        # positions sliced from one row: most slices are not 16-byte
-        # aligned, and ``apply_attention`` realigns them for the kernel
-        got, caches = T.decode_step(params, cfg, toks[:, t:t + 1], caches,
-                                    pos[:, t:t + 1], image_embeds=img)
+        # one replay; the tokens and the (unaligned) position slices are
+        # copied into the graph's static inputs
+        got, _greedy = graph.run(toks[:, t:t + 1], pos[:, t:t + 1])
         want = full[:, t]
         rel = float((got[:, 0] - want).abs().max() / want.abs().max())
         steps.append(1e3 * (time.perf_counter() - t1))
         worst = max(worst, rel)
         agree += int(got[0, 0].argmax() == want[0].argmax())
     c = counts.read("vlm_decode")
+    graph_ms = sorted(steps[1:])[len(steps[1:]) // 2]
     merges = cfg.n_layers * VLM_STEPS * _split_calls(
         FA, 1, cfg.n_heads, cfg.n_kv_heads, 2 * VLM_PROMPT)
     assert c["flash_attention"] == cfg.n_layers * (1 + VLM_STEPS), c
@@ -2106,31 +2202,33 @@ def _vlm(counts: Counts, card: str) -> dict:
     out = {"arch": VLM_ARCH, "layers": cfg.n_layers, "params": n_params,
            "image_tokens": cfg.n_image_tokens, "prompt": VLM_PROMPT,
            "forward_s": fwd_s, "decode_ms": steps,
+           "per_replay": graph.per_replay,
            "decode_vs_forward_rel": worst,
            "decode_argmax_agreement": agree / VLM_STEPS,
            "peak_bytes": torch.cuda.max_memory_allocated(), "card": card}
-    del caches, full
+    del caches, full, graph
     out["f32"] = _f32_parity(counts, VLM_ARCH, cfg, params)
     print(f"[vlm] {VLM_ARCH} cut to {cfg.n_layers} layers ({n_params} "
           f"parameters, bf16) on {card}: forward over {s} tokens and "
           f"{cfg.n_image_tokens} image embeddings {fwd_s} s; decode ms "
-          f"{steps}; decode vs forward {worst} of the largest logit, argmax "
+          f"{steps} (graph replays, {graph_ms} ms a step after the first); "
+          f"decode vs forward {worst} of the largest logit, argmax "
           f"{agree}/{VLM_STEPS}", flush=True)
     return out
 
 
-def _audio(counts: Counts, card: str) -> dict:
-    """musicgen-medium at full width: one ``forward`` from
-    ``AUDIO_FRAMES`` frame embeddings (48 launches), finite logits of the
-    expected shape; fed the token embeddings of some tokens as
-    ``input_embeds`` it gives the token path's logits bit for bit."""
+def _audio(counts: Counts, card: str, params) -> dict:
+    """musicgen-medium at full width, on the weights ``_serve_arch``
+    served: one ``forward`` from ``AUDIO_FRAMES`` frame embeddings (48
+    launches), finite logits of the expected shape; fed the token
+    embeddings of some tokens as ``input_embeds`` it gives the token
+    path's logits bit for bit."""
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     cfg = get_config(AUDIO_ARCH)
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    params = T.init_params(gen, cfg)
+    gen.manual_seed(1)
     n_params = sum(t.numel() for t in _leaves(params))
     emb = torch.randn((1, AUDIO_FRAMES, cfg.d_model), generator=gen,
                       device="cuda") * 0.02
@@ -2158,22 +2256,22 @@ def _audio(counts: Counts, card: str) -> dict:
 
 
 def arch_serve_path(counts: Counts, card: str) -> dict:
-    """qwen2-moe-a2.7b, hymba-1.5b and mamba2-780m served at full width
-    (:func:`_serve_arch`), each with its float32 card-vs-CPU check; the
-    VLM cut to 10 layers (:func:`_vlm`); musicgen-medium's forward from
-    frame embeddings (:func:`_audio`).  Each model is freed before the
-    next is made."""
+    """qwen2-moe-a2.7b, hymba-1.5b, mamba2-780m and musicgen-medium served
+    at full width (:func:`_serve_arch`), each with its float32
+    card-vs-CPU check, musicgen-medium also with its forward from frame
+    embeddings (:func:`_audio`); the VLM cut to 10 layers (:func:`_vlm`).
+    Each model is freed before the next is made."""
+    from repro_torch.configs import get_config
     out = {}
     for arch in ARCH_SERVE:
         row, params = _serve_arch(counts, card, arch)
-        from repro_torch.configs import get_config
         row["f32"] = _f32_parity(counts, arch, get_config(arch), params)
+        if arch == AUDIO_ARCH:
+            row["frames"] = _audio(counts, card, params)
         out[arch] = row
         del params
         torch.cuda.empty_cache()
     out[VLM_ARCH] = _vlm(counts, card)
-    torch.cuda.empty_cache()
-    out[AUDIO_ARCH] = _audio(counts, card)
     torch.cuda.empty_cache()
     return out
 

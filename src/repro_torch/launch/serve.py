@@ -55,8 +55,11 @@ def main(argv: list[str] | None = None) -> list:
     done = eng.run()
     dt = time.time() - t0
     tokens = sum(len(r.out_tokens) for r in done)
+    decode_ms = 1e3 * float(np.median(eng.decode_s)) if eng.decode_s \
+        else float("nan")
     print(f"[serve] {len(done)} requests, {tokens} tokens, "
-          f"{dt:.2f}s, {tokens / dt:.1f} tok/s on {dev}")
+          f"{dt:.2f}s, {tokens / dt:.1f} tok/s, decode {decode_ms:.3f} ms "
+          f"per step (median of {len(eng.decode_s)}) on {dev}")
     for r in done[:3]:
         print(f"  req {r.rid}: {len(r.prompt)}-token prompt -> "
               f"{r.out_tokens[:8]}...")

@@ -4,11 +4,16 @@ continuous batching (``repro.serve.engine`` on torch).
 * fixed decode **slots** (the serving batch); requests are admitted into
   free slots, each slot carrying its own position counter;
 * **prefill** runs the prompt through every layer and writes the slot's
-  caches; **decode** advances all slots one token per step with one
-  :func:`~repro_torch.models.transformer.decode_step`;
-* sampling: greedy (the reference's tokens), or temperature from a
+  caches, eagerly; **decode** advances all slots one token per step with
+  one :func:`~repro_torch.models.transformer.decode_step`, captured once
+  as a CUDA graph at construction and replayed every step
+  (:class:`~repro_torch.serve.graph.DecodeGraph`: the reference's jitted
+  ``decode_step``; on the CPU the same call runs eagerly);
+* sampling: greedy (the reference's tokens), read from the step's greedy
+  tokens with one device-to-host copy a step, or temperature from a
   ``torch.Generator`` seeded per (seed, request, step) with the
-  reference's formula — deterministic, but not jax's bits.
+  reference's formula — deterministic, but not jax's bits — on the step's
+  logits before the next step overwrites them.
 
 The caches live on the engine's device and are written in place: a
 prefill gets views of its slot's caches (:meth:`ServeEngine._slot_caches`:
@@ -40,6 +45,7 @@ from ..core.simulator import resolve_device
 from ..models import layers as L
 from ..models import transformer as T
 from ..models.config import ModelConfig
+from .graph import DecodeGraph
 
 
 @dataclass
@@ -88,6 +94,10 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.caches = T.init_caches(cfg, n_slots, max_len, dtype=cache_dtype,
                                     device=self.device)
+        # built before any prefill: its warm-up is undone, so the caches
+        # keep init_caches's values
+        self.graph = DecodeGraph(params, cfg, self.caches, n_slots,
+                                 device=self.device)
         self.chunk = cfg.ssm_chunk \
             if cfg.block_type in ("ssm", "hybrid") else 1
         #: the longest prompt a prefill can write (None: no KV cache, no
@@ -165,15 +175,15 @@ class ServeEngine:
         if not active:
             return
         t0 = time.perf_counter()
-        toks = torch.from_numpy(self.slot_next[:, None].astype(np.int64)
-                                ).to(self.device)
-        pos = torch.from_numpy(self.slot_pos[:, None].copy()).to(self.device)
-        logits, self.caches = T.decode_step(self.params, self.cfg, toks,
-                                            self.caches, pos)
+        logits, greedy = self.graph.run(
+            torch.from_numpy(self.slot_next[:, None]),
+            torch.from_numpy(self.slot_pos[:, None]))
         self._steps += 1
+        greedy = greedy.tolist()            # the step's one host read
         for slot in active:
             req = self.slot_req[slot]
-            nxt = self._sample(logits[slot, 0], req)
+            nxt = greedy[slot] if req.temperature <= 0.0 \
+                else self._sample(logits[slot, 0], req)
             req.out_tokens.append(nxt)
             self.slot_pos[slot] += 1
             self.slot_next[slot] = nxt

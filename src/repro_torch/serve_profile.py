@@ -4,19 +4,27 @@
         [--out build/serve_profile.json]
 
 A config of ``configs/`` uncut (``--arch``: ``configs/qwen3_4b.py`` by
-default; also the MoE, hybrid and SSM families the engine serves; random
-bf16 weights from a seeded generator) behind ``ServeEngine`` with 4 slots
-of 4096 tokens and the float32 cache.  Two cells, each measured as ``mc_profile.measure`` does
-(wall = median of ``REPS`` untraced calls ending in a synchronize; device
-time per kernel from one ``torch.profiler`` trace; busy share = device
-time / wall):
+default; also every other family the engine serves — qwen2-moe-a2.7b,
+hymba-1.5b, mamba2-780m, musicgen-medium; random bf16 weights from a
+seeded generator) behind ``ServeEngine`` with 4 slots of 4096 tokens and
+the float32 cache.  Three cells, each measured as ``mc_profile.measure``
+does (wall = median of ``REPS`` untraced calls ending in a synchronize;
+device time per kernel from one ``torch.profiler`` trace; busy share =
+device time / wall):
 
 * ``serve_prefill`` — one prefill of a ``PREFILL_LEN``-token prompt into a
   slot's caches (``_prefill_fn`` and the greedy sample of the first
   token, what ``ServeEngine._admit`` runs per request);
 * ``serve_decode`` — one ``ServeEngine.step`` with all four slots active,
-  their positions between 1024 and 2048 (one ``decode_step`` and four
-  greedy samples).
+  their positions between 1024 and 2048: one replay of the engine's CUDA
+  graph of ``decode_step`` and one host read of the four greedy tokens;
+  beside it ``replay_ms``, the device time of one replay alone from CUDA
+  events (the mean over ``REPS`` replays queued back to back), and the
+  SM clock, temperature and power draw right after (``clocks_after``);
+* ``serve_decode_eager`` — the same step as the engine ran it before the
+  graph, on the same engine state: ``decode_step`` op by op from Python
+  and one host read per slot (the engine's caches are written at the
+  slots' current positions, which the next graphed step writes again).
 
 Prints one JSON object and writes it to ``--out``.  Needs a CUDA device;
 without one it exits non-zero.
@@ -37,6 +45,29 @@ from .mc_profile import measure
 ARCH, SLOTS, MAX_LEN, PREFILL_LEN, REPS = "qwen3-4b", 4, 4096, 2048, 5
 #: prompt lengths of the four decoding slots
 DECODE_PROMPTS = (2048, 1536, 1280, 1024)
+
+
+def replay_ms(graph) -> float:
+    """Device ms of one replay of a CUDA graph: CUDA events around
+    ``REPS`` replays queued back to back, over the count."""
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(REPS):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / REPS
+
+
+def clocks() -> str:
+    """The card's SM clock, temperature and power draw now, as
+    ``nvidia-smi`` reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
 
 
 def main(argv=None) -> int:
@@ -74,6 +105,18 @@ def main(argv=None) -> int:
                    max_new_tokens=MAX_LEN)
     eng.step()                        # admits the four prompts
     cells["serve_decode"] = measure(eng.step, REPS)
+    cells["serve_decode"]["replay_ms"] = replay_ms(eng.graph.graph)
+    cells["serve_decode"]["clocks_after"] = clocks()
+
+    def eager_step():
+        toks = torch.from_numpy(eng.slot_next[:, None].astype(np.int64))
+        pos = torch.from_numpy(eng.slot_pos[:, None].copy())
+        with torch.no_grad():
+            logits, _ = T.decode_step(params, cfg, toks.cuda(), eng.caches,
+                                      pos.cuda())
+        return [int(torch.argmax(logits[i, 0])) for i in range(SLOTS)]
+
+    cells["serve_decode_eager"] = measure(eager_step, REPS)
     out = {"card": smi, "arch": args.arch, "slots": SLOTS, "max_len": MAX_LEN,
            "prefill_len": PREFILL_LEN, "decode_prompts": DECODE_PROMPTS,
            "decode_positions_after": [int(p) for p in eng.slot_pos],
