@@ -35,6 +35,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import trace
 from . import compiler as CC
 from .device import get_module
 from .isa import PudIsa
@@ -102,9 +103,11 @@ class BankArray:
         t = self.trials if trials is ... else trials
         key = (bank, t, tuple(sorted(overrides.items())))
         if key not in self._isas:
-            sim = BankSim(self.module, seed=self.bank_seeds[bank], bank=bank,
-                          trials=t, **{**self._sim_kwargs, **overrides})
-            self._isas[key] = PudIsa(sim, bank=bank)
+            with trace.span("pud.chip"):
+                sim = BankSim(self.module, seed=self.bank_seeds[bank],
+                              bank=bank, trials=t,
+                              **{**self._sim_kwargs, **overrides})
+                self._isas[key] = PudIsa(sim, bank=bank)
         return self._isas[key]
 
     def fused_isa(self, n_banks: int | None = None,
@@ -126,9 +129,11 @@ class BankArray:
         if key not in self._fused:
             kw = {**self._sim_kwargs, **overrides}
             kw.pop("track_unshared", None)
-            sim = FusedBankSim(self.module, bank_seeds=self.bank_seeds[:k],
-                               trials=int(t), **kw)
-            self._fused[key] = FusedPudIsa(sim)
+            with trace.span("pud.chip"):
+                sim = FusedBankSim(self.module,
+                                   bank_seeds=self.bank_seeds[:k],
+                                   trials=int(t), **kw)
+                self._fused[key] = FusedPudIsa(sim)
         return self._fused[key]
 
     def __getitem__(self, bank: int) -> PudIsa:

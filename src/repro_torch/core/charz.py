@@ -40,8 +40,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from contextlib import contextmanager
 from functools import lru_cache
 
+from .. import trace
 from . import analog as A
 from . import compiler as CC
 from .analog import CLOSE, FAR, MIDDLE
@@ -180,15 +182,15 @@ class _Operands:
             return self._rand(shape)
         n = int(np.prod(shape))
         raw = np.frombuffer(self.rng.bytes((n + 7) // 8), dtype=np.uint8)
-        return torch.from_numpy(np.unpackbits(raw)[:n].reshape(shape)) \
-            .to(self.device)
+        return trace.to_device(np.unpackbits(raw)[:n].reshape(shape),
+                               self.device)
 
     def word(self, w: int) -> torch.Tensor:
         """One word of 0/1 bits (the per-trial reference paths)."""
         if self.gen is not None:
             return self._rand((w,))
-        return torch.from_numpy(
-            self.rng.integers(0, 2, w).astype(np.uint8)).to(self.device)
+        return trace.to_device(self.rng.integers(0, 2, w).astype(np.uint8),
+                               self.device)
 
 
 def _want_nary(op: str, ops: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -198,12 +200,44 @@ def _want_nary(op: str, ops: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 
 def _hits(got: torch.Tensor, want: torch.Tensor) -> int:
+    trace.count("reads.score")
     return int((got == want).sum())
+
+
+#: the lists :func:`collect_rows` is filling, innermost last
+_row_sinks: list[list] = []
+
+
+@contextmanager
+def collect_rows():
+    """Collect, in order, a copy of every result block that
+    :func:`mc_boolean_success` and :func:`mc_not_success` score: one
+    ``(T, w)`` block per group on one bank, one ``(N*T, w)`` block per fused
+    round of N banks, one ``(w,)`` word per trial on the per-trial path.
+
+    ``with collect_rows() as rows: mc_boolean_success(...)`` leaves them in
+    ``rows``; the rate is the share of their bits equal to the wanted
+    answer."""
+    rows: list[torch.Tensor] = []
+    _row_sinks.append(rows)
+    try:
+        yield rows
+    finally:
+        _row_sinks[:] = [s for s in _row_sinks if s is not rows]
+
+
+def _score(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Hits of one result block, through the module-level :func:`_hits`,
+    after handing a copy of the block to every open :func:`collect_rows`."""
+    for sink in _row_sinks:
+        sink.append(got.clone())
+    return _hits(got, want)
 
 
 # ---------------------------------------------------------------------------
 # Monte-Carlo measurement through the full simulator stack
 # ---------------------------------------------------------------------------
+@trace.spanned("pud.pairs")
 def _stratified_pairs(isa: PudIsa, n_rf: int, n_rl: int,
                       groups: int, *, seed: int) -> list[tuple[int, int]]:
     """``groups`` (R_F, R_L) address pairs cycling the 3x3 region grid
@@ -278,6 +312,7 @@ def _bank_pair_schedule(arr: BankArray, groups: int, pairs_of, *,
             yield arr.isa(b), pair
 
 
+@trace.rooted("pud.mc.boolean")
 def mc_boolean_success(op: str, n: int, *, trials: int = 200,
                        row_bits: int = 2048, seed: int = 0,
                        module: str | None = None, temp_c: float = 50.0,
@@ -300,22 +335,27 @@ def mc_boolean_success(op: str, n: int, *, trials: int = 200,
     dev = resolve_device(device)
     draw = _Operands(seed, draws, dev)
     if not batched:
-        sim = BankSim(module or get_module(), row_bits=row_bits, seed=seed,
-                      temp_c=temp_c, error_model="analog", draws=draws,
-                      device=dev)
-        isa = PudIsa(sim)
+        with trace.span("pud.chip"):
+            sim = BankSim(module or get_module(), row_bits=row_bits,
+                          seed=seed, temp_c=temp_c, error_model="analog",
+                          draws=draws, device=dev)
+            isa = PudIsa(sim)
         ok = 0
         tot = 0
         for _t in range(trials):
-            ops = torch.stack([draw.word(isa.width) for _ in range(n)])
+            with trace.span("pud.operands"):
+                ops = torch.stack([draw.word(isa.width) for _ in range(n)])
             got = isa.nary_op(op, list(ops))
-            ok += _hits(got, _want_nary(op, ops))
+            with trace.span("pud.score"):
+                ok += _score(got, _want_nary(op, ops))
             tot += isa.width
         return ok / tot
     tg = max(1, -(-trials // groups))
-    arr = BankArray(module or get_module(), banks=banks, row_bits=row_bits,
-                    seed=seed, temp_c=temp_c, error_model="analog",
-                    trials=tg, track_unshared=False, draws=draws, device=dev)
+    with trace.span("pud.chip"):
+        arr = BankArray(module or get_module(), banks=banks,
+                        row_bits=row_bits, seed=seed, temp_c=temp_c,
+                        error_model="analog", trials=tg,
+                        track_unshared=False, draws=draws, device=dev)
     ok = 0
     tot = 0
     if _use_fused(fused, arr.module, banks, dealer):
@@ -326,12 +366,14 @@ def mc_boolean_success(op: str, n: int, *, trials: int = 200,
         def run_round(fisa, r):
             nonlocal ok, tot
             # draw per group in round-robin order, stacked bank-major
-            ops = torch.cat([draw.bits((tg, n, fisa.width))
-                             for _b in range(fisa.n_banks)])
+            with trace.span("pud.operands"):
+                ops = torch.cat([draw.bits((tg, n, fisa.width))
+                                 for _b in range(fisa.n_banks)])
             pairs = [pairs_by_bank[b][r] for b in range(fisa.n_banks)]
             got = fisa.nary_op(op, ops.swapaxes(0, 1), pair=pairs)
-            ok += _hits(got, _want_nary(op, ops, dim=1))
-            tot += got.numel()
+            with trace.span("pud.score"):
+                ok += _score(got, _want_nary(op, ops, dim=1))
+                tot += got.numel()
 
         _fused_mc_rounds(arr, groups, run_round)
         _fill_stats(stats, arr, groups, tg)
@@ -340,16 +382,19 @@ def mc_boolean_success(op: str, n: int, *, trials: int = 200,
             arr, groups, lambda isa: _stratified_pairs(isa, n, n, groups,
                                                        seed=seed),
             dealer=dealer):
-        isa.sim.recycle_rows()      # bound the hot working set to one op
-        # trial-major draw: operand staging reads it contiguously
-        ops = draw.bits((tg, n, isa.width))
+        with trace.span("pud.operands"):
+            isa.sim.recycle_rows()  # bound the hot working set to one op
+            # trial-major draw: operand staging reads it contiguously
+            ops = draw.bits((tg, n, isa.width))
         got = isa.nary_op(op, ops.swapaxes(0, 1), pair=pair)
-        ok += _hits(got, _want_nary(op, ops, dim=1))
-        tot += got.numel()
+        with trace.span("pud.score"):
+            ok += _score(got, _want_nary(op, ops, dim=1))
+            tot += got.numel()
     _fill_stats(stats, arr, groups, tg)
     return ok / tot
 
 
+@trace.rooted("pud.mc.not")
 def mc_not_success(n_dst: int = 1, *, trials: int = 200, row_bits: int = 2048,
                    seed: int = 0, module: str | None = None,
                    batched: bool = True, banks: int = 1,
@@ -363,21 +408,27 @@ def mc_not_success(n_dst: int = 1, *, trials: int = 200, row_bits: int = 2048,
     dev = resolve_device(device)
     draw = _Operands(seed, draws, dev)
     if not batched:
-        sim = BankSim(module or get_module(), row_bits=row_bits, seed=seed,
-                      error_model="analog", draws=draws, device=dev)
-        isa = PudIsa(sim)
+        with trace.span("pud.chip"):
+            sim = BankSim(module or get_module(), row_bits=row_bits,
+                          seed=seed, error_model="analog", draws=draws,
+                          device=dev)
+            isa = PudIsa(sim)
         ok = 0
         tot = 0
         for _t in range(trials):
-            bits = draw.word(isa.width)
+            with trace.span("pud.operands"):
+                bits = draw.word(isa.width)
             got = isa.op_not(bits, n_dst=n_dst)
-            ok += _hits(got, 1 - bits)
+            with trace.span("pud.score"):
+                ok += _score(got, 1 - bits)
             tot += isa.width
         return ok / tot
     tg = max(1, -(-trials // groups))
-    arr = BankArray(module or get_module(), banks=banks, row_bits=row_bits,
-                    seed=seed, error_model="analog", trials=tg,
-                    track_unshared=False, draws=draws, device=dev)
+    with trace.span("pud.chip"):
+        arr = BankArray(module or get_module(), banks=banks,
+                        row_bits=row_bits, seed=seed, error_model="analog",
+                        trials=tg, track_unshared=False, draws=draws,
+                        device=dev)
     ok = 0
     tot = 0
     if _use_fused(fused, arr.module, banks, dealer):
@@ -388,12 +439,14 @@ def mc_not_success(n_dst: int = 1, *, trials: int = 200, row_bits: int = 2048,
 
         def run_round(fisa, r):
             nonlocal ok, tot
-            bits = torch.cat([draw.bits((tg, fisa.width))
-                              for _b in range(fisa.n_banks)])
+            with trace.span("pud.operands"):
+                bits = torch.cat([draw.bits((tg, fisa.width))
+                                  for _b in range(fisa.n_banks)])
             pairs = [pairs_by_bank[b][r] for b in range(fisa.n_banks)]
             got = fisa.op_not(bits, n_dst=n_dst, pair=pairs)
-            ok += _hits(got, 1 - bits)
-            tot += got.numel()
+            with trace.span("pud.score"):
+                ok += _score(got, 1 - bits)
+                tot += got.numel()
 
         _fused_mc_rounds(arr, groups, run_round)
         _fill_stats(stats, arr, groups, tg)
@@ -403,11 +456,13 @@ def mc_not_success(n_dst: int = 1, *, trials: int = 200, row_bits: int = 2048,
             lambda isa: _stratified_pairs(isa, isa.not_activation(n_dst),
                                           n_dst, groups, seed=seed),
             dealer=dealer):
-        isa.sim.recycle_rows()      # bound the hot working set to one op
-        bits = draw.bits((tg, isa.width))
+        with trace.span("pud.operands"):
+            isa.sim.recycle_rows()  # bound the hot working set to one op
+            bits = draw.bits((tg, isa.width))
         got = isa.op_not(bits, n_dst=n_dst, pair=pair)
-        ok += _hits(got, 1 - bits)
-        tot += got.numel()
+        with trace.span("pud.score"):
+            ok += _score(got, 1 - bits)
+            tot += got.numel()
     _fill_stats(stats, arr, groups, tg)
     return ok / tot
 

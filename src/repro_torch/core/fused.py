@@ -45,6 +45,7 @@ import math
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels import ops as kops
 from ..kernels.senseamp import round_to
 from . import analog as A
@@ -112,7 +113,7 @@ class _FusedDraws:
         if self.numpy:
             x = np.concatenate([getattr(g, np_name)(bs, dtype=_NP_DTYPE[dtype])
                                 for g in self.gens])
-            return torch.from_numpy(x).to(self.device)
+            return trace.to_device(x, self.device)
         out = torch.empty(shape, dtype=dtype, device=self.device)
         for b, g in enumerate(self.gens):
             getattr(out[b * self.t:(b + 1) * self.t], fill)(generator=g)
@@ -342,9 +343,9 @@ class FusedBankSim(BankSim):
                 density_gb=self.module.density_gb,
                 die_rev=self.module.die_rev)
             shift = A.op_shift(op, n, p)
-            static = torch.from_numpy(self.static_offsets(
-                stripe, op, n, random_pattern=random_pattern)).to(
-                    device=self.device, dtype=self._noise_dtype)   # (N, w)
+            static = trace.to_device(self.static_offsets(
+                stripe, op, n, random_pattern=random_pattern),
+                self.device, self._noise_dtype)                  # (N, w)
             pf = A.op_pfloor(op, n, p, temp_c=self.temp_c,
                              random_pattern=random_pattern,
                              speed_mts=self.module.speed_mts)
@@ -352,6 +353,7 @@ class FusedBankSim(BankSim):
             thr = torch.tensor([round_to(-(dv_b - shift - p.delta_v),
                                          self._noise_dtype) for dv_b in dv],
                                dtype=self._noise_dtype, device=self.device)
+            trace.count("h2d_copies")
             cached = self._param_cache[key] = (s, static, pf, thr)
         return cached
 
@@ -400,8 +402,8 @@ class FusedBankSim(BankSim):
                     die_rev=self.module.die_rev)
                 a = _norm_ppf(np.clip(p_ok, 1e-9, 1 - 1e-9)) \
                     * math.sqrt(1.0 + spread ** 2)
-                z_b = torch.from_numpy(A.phi(a + spread * _norm_ppf(xi1[b]))) \
-                    .to(device=self.device, dtype=self._noise_dtype)
+                z_b = trace.to_device(A.phi(a + spread * _norm_ppf(xi1[b])),
+                                      self.device, self._noise_dtype)
                 self._not_z_cache[key] = z_b
             zs.append(z_b)
         return torch.stack(zs)
@@ -409,82 +411,96 @@ class FusedBankSim(BankSim):
     # ---------------- fused APA ----------------
     def apa(self, rf_global, rl_global, *, first_act_restored: bool = False,
             random_pattern: bool = True) -> FusedActivation:
-        rps = self.geom.rows_per_subarray
-        rfv = self._pb_vals(rf_global)[:, 0]
-        rlv = self._pb_vals(rl_global)[:, 0]
-        f_subs, f_rows = np.divmod(rfv, rps)
-        l_subs, l_rows = np.divmod(rlv, rps)
-        if not ((f_subs == f_subs[0]).all() and (l_subs == l_subs[0]).all()):
-            raise FusedGeometryError(
-                "fused APA needs one subarray pair shared by all banks")
-        f_sub, l_sub = int(f_subs[0]), int(l_subs[0])
-        fact = _uniform_fact([
-            DEC.activation_pattern(self.module, int(f_rows[b]),
-                                   int(l_rows[b]), seed=self.bank_seeds[b])
-            for b in range(self.n_banks)])
-        t = self.timings
-        t_first = t.tRAS if first_act_restored else VIOLATED_TRAS_NS
-        self.log.add("APA", t_first + VIOLATED_TRP_NS + t.tRAS + t.tRP,
-                     (fact.n_rf + fact.n_rl) * ENERGY_PJ["act"]
-                     + 2 * ENERGY_PJ["pre"],
-                     bank=self.bank, sub=f_sub)
-        if fact.n_rf == 0:
-            return fact
-        if self.module.activation is ActivationSupport.SEQUENTIAL \
-                and not first_act_restored:
-            return fact
-        stripe, f_cols, l_cols = self._col_slices(f_sub, l_sub)
-        rows_f = self._map_rows(f_sub, PerBank(fact.rows_f))
-        rows_l = self._map_rows(l_sub, PerBank(fact.rows_l))
-        arr_f, arr_l = self._cells(f_sub), self._cells(l_sub)
-        idx_f, idx_l = self._index(rows_f), self._index(rows_l)
-        rng = self._rng()
-        geom = self.geom
-        reg_f = np.atleast_1d(geom.distance_regions(
-            f_rows, toward_upper=f_sub > l_sub))
-        reg_l = np.atleast_1d(geom.distance_regions(
-            l_rows, toward_upper=l_sub > f_sub))
-        nb, tb, w = self.n_banks, self.trials_per_bank, self.shared_w
+        with trace.span("pud.apa.plan"):
+            rps = self.geom.rows_per_subarray
+            rfv = self._pb_vals(rf_global)[:, 0]
+            rlv = self._pb_vals(rl_global)[:, 0]
+            f_subs, f_rows = np.divmod(rfv, rps)
+            l_subs, l_rows = np.divmod(rlv, rps)
+            if not ((f_subs == f_subs[0]).all()
+                    and (l_subs == l_subs[0]).all()):
+                raise FusedGeometryError(
+                    "fused APA needs one subarray pair shared by all banks")
+            f_sub, l_sub = int(f_subs[0]), int(l_subs[0])
+            fact = _uniform_fact([
+                DEC.activation_pattern(self.module, int(f_rows[b]),
+                                       int(l_rows[b]),
+                                       seed=self.bank_seeds[b])
+                for b in range(self.n_banks)])
+            t = self.timings
+            t_first = t.tRAS if first_act_restored else VIOLATED_TRAS_NS
+            self.log.add("APA", t_first + VIOLATED_TRP_NS + t.tRAS + t.tRP,
+                         (fact.n_rf + fact.n_rl) * ENERGY_PJ["act"]
+                         + 2 * ENERGY_PJ["pre"],
+                         bank=self.bank, sub=f_sub)
+            if fact.n_rf == 0:
+                return fact
+            if self.module.activation is ActivationSupport.SEQUENTIAL \
+                    and not first_act_restored:
+                return fact
+            stripe, f_cols, l_cols = self._col_slices(f_sub, l_sub)
+            rows_f = self._map_rows(f_sub, PerBank(fact.rows_f))
+            rows_l = self._map_rows(l_sub, PerBank(fact.rows_l))
+            arr_f, arr_l = self._cells(f_sub), self._cells(l_sub)
+            idx_f, idx_l = self._index(rows_f), self._index(rows_l)
+            rng = self._rng()
+            geom = self.geom
+            reg_f = np.atleast_1d(geom.distance_regions(
+                f_rows, toward_upper=f_sub > l_sub))
+            reg_l = np.atleast_1d(geom.distance_regions(
+                l_rows, toward_upper=l_sub > f_sub))
+            nb, tb, w = self.n_banks, self.trials_per_bank, self.shared_w
 
         if first_act_restored:
             # ---- NOT protocol: per-bank success latents ----
-            n_src = fact.n_rf
-            u = A.u_n(n_src, self.params)
-            v_src = 0.5 + (self._row_sum(arr_f, rows_f, f_cols)
-                           - round_to(0.5 * n_src, torch.float32)) \
-                * round_to(u, torch.float32)
-            src_bit = v_src > 0.5                       # (N*T, w)
-            if self.error_model == "analog":
-                z = self._not_z(stripe, fact, reg_f, reg_l)        # (N, w)
-                draw = rng.uniform(tuple(src_bit.shape), self._noise_dtype)
-                ok = (draw.view(nb, tb, w) < z[:, None]).view(src_bit.shape)
-            else:
-                ok = torch.ones_like(src_bit)
-            dst_bit = torch.where(ok, ~src_bit, src_bit).to(torch.float32)
-            arr_l[:, idx_l, l_cols] = dst_bit[:, None, :]
-            arr_f[:, idx_f, f_cols] = src_bit.to(torch.float32)[:, None, :]
+            with trace.span("pud.apa.resolve"):
+                n_src = fact.n_rf
+                u = A.u_n(n_src, self.params)
+                v_src = 0.5 + (self._row_sum(arr_f, rows_f, f_cols)
+                               - round_to(0.5 * n_src, torch.float32)) \
+                    * round_to(u, torch.float32)
+                src_bit = v_src > 0.5                       # (N*T, w)
+                if self.error_model == "analog":
+                    z = self._not_z(stripe, fact, reg_f, reg_l)    # (N, w)
+                    draw = rng.uniform(tuple(src_bit.shape),
+                                       self._noise_dtype)
+                    ok = (draw.view(nb, tb, w) < z[:, None]).view(
+                        src_bit.shape)
+                else:
+                    ok = torch.ones_like(src_bit)
+                dst_bit = torch.where(ok, ~src_bit, src_bit).to(torch.float32)
+            with trace.span("pud.apa.writeback"):
+                arr_l[:, idx_l, l_cols] = dst_bit[:, None, :]
+                arr_f[:, idx_f, f_cols] = src_bit.to(torch.float32)[:, None, :]
+                self._scattered(len(idx_l) + len(idx_f), w)
         else:
             # ---- Boolean-op protocol ----
             # the noise context (AND- vs OR-family common mode) must agree
             # across banks: per-bank float64 sums, one (N,) read per APA
-            n_f = fact.n_rf
-            lo = int(rows_f.min())
-            span = arr_f[:, lo:int(rows_f.max()) + 1, f_cols]
-            per_slot = span.reshape(nb, tb, span.shape[1], w).sum(
-                dim=(1, 3), dtype=torch.float64)               # (N, slots)
-            total = per_slot[:, self._index(rows_f - lo)].sum(dim=1)
-            level = total.cpu().numpy() - 0.5 * n_f * tb * w
-            ctx = level >= 0.0
-            if not (ctx == ctx[0]).all():
-                raise FusedExecutionError(
-                    "reference common-mode sign differs across banks")
-            op_ctx = "and" if bool(ctx[0]) else "or"
-            out = self._resolve(l_sub, rows_l, l_cols, f_sub, rows_f, f_cols,
-                                stripe, op_ctx, regions=(reg_l, reg_f),
-                                random_pattern=random_pattern, rng=rng)
-            outf = out.to(torch.float32)
-            arr_l[:, idx_l, l_cols] = outf[:, None, :]
-            arr_f[:, idx_f, f_cols] = (1.0 - outf)[:, None, :]
+            with trace.span("pud.apa.opctx"):
+                n_f = fact.n_rf
+                lo = int(rows_f.min())
+                span = arr_f[:, lo:int(rows_f.max()) + 1, f_cols]
+                per_slot = span.reshape(nb, tb, span.shape[1], w).sum(
+                    dim=(1, 3), dtype=torch.float64)           # (N, slots)
+                total = per_slot[:, self._index(rows_f - lo)].sum(dim=1)
+                level = total.cpu().numpy() - 0.5 * n_f * tb * w
+                trace.count("reads.opctx")
+                ctx = level >= 0.0
+                if not (ctx == ctx[0]).all():
+                    raise FusedExecutionError(
+                        "reference common-mode sign differs across banks")
+                op_ctx = "and" if bool(ctx[0]) else "or"
+            with trace.span("pud.apa.resolve"):
+                out = self._resolve(l_sub, rows_l, l_cols, f_sub, rows_f,
+                                    f_cols, stripe, op_ctx,
+                                    regions=(reg_l, reg_f),
+                                    random_pattern=random_pattern, rng=rng)
+            with trace.span("pud.apa.writeback"):
+                outf = out.to(torch.float32)
+                arr_l[:, idx_l, l_cols] = outf[:, None, :]
+                arr_f[:, idx_f, f_cols] = (1.0 - outf)[:, None, :]
+                self._scattered(len(idx_l) + len(idx_f), w)
         # track_unshared is forced off: no non-shared-column restore (and,
         # as in the loop path, its draws are skipped too)
         return fact
@@ -615,10 +631,11 @@ class FusedPudIsa(PudIsa):
             raise NotImplementedError(
                 "fused execution stages operands from the host "
                 "(resident row chaining is loop-path only)")
-        self.sim.recycle_rows()     # lockstep slot allocation (module doc)
-        self.sim.write_cols_multi(
-            self.f_sub, PerBank(act.rows_f), self._f_sl,
-            self.sim.as_tensor(payload)[..., None, :])
+        with trace.span("pud.apa.stage"):
+            self.sim.recycle_rows()     # lockstep slot allocation
+            self.sim.write_cols_multi(
+                self.f_sub, PerBank(act.rows_f), self._f_sl,
+                self.sim.as_tensor(payload)[..., None, :])
         self.stats.writes += act.n_rf
         self.stats.cost = self.stats.cost \
             + self.cost_model.write_row().scaled(act.n_rf)
@@ -681,21 +698,23 @@ class FusedPudIsa(PudIsa):
         if not (isinstance(sources, tuple) and sources[0] == "write_stack"):
             raise NotImplementedError(
                 "fused execution stages operands with ('write_stack', ops)")
-        self.sim.recycle_rows()     # lockstep slot allocation (module doc)
         n = act.n_rf
         base, _is_ref = _base_op(op.lower())
         const = 1.0 if base == "and" else 0.0
-        self.sim.fill_rows(self.f_sub, PerBank(act.rows_f[:, :-1]), const,
-                           cols=self._f_sl)
+        with trace.span("pud.apa.stage"):
+            self.sim.recycle_rows()     # lockstep slot allocation
+            self.sim.fill_rows(self.f_sub, PerBank(act.rows_f[:, :-1]),
+                               const, cols=self._f_sl)
+            self.sim.frac_row(self.f_sub, PerBank(act.rows_f[:, -1]))
+            stack = self._stack_words(sources[1])
+            n_wr = stack.shape[-2]
+            self.sim.write_cols_multi(self.l_sub,
+                                      PerBank(act.rows_l[:, :n_wr]),
+                                      self._l_sl, stack)
         self.stats.writes += n - 1
         self.stats.cost = self.stats.cost \
             + self.cost_model.write_row().scaled(n - 1)
-        self.sim.frac_row(self.f_sub, PerBank(act.rows_f[:, -1]))
         self.stats.fracs += 1
-        stack = self._stack_words(sources[1])
-        n_wr = stack.shape[-2]
-        self.sim.write_cols_multi(self.l_sub, PerBank(act.rows_l[:, :n_wr]),
-                                  self._l_sl, stack)
         self.stats.writes += n_wr
         self.sim.op_boolean(op, self.sim.global_addr(self.f_sub, rf),
                             self.sim.global_addr(self.l_sub, rl),

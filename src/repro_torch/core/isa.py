@@ -31,6 +31,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import trace
 from . import decoder as DEC
 from .analog import ALL_OPS, _base_op
 from .device import (ENERGY_PJ, ModuleConfig, get_module, timings_for,
@@ -102,7 +103,8 @@ class CapabilityError(RuntimeError):
 
 @lru_cache(maxsize=16)
 def _inventory(module_name: str, seed: int) -> PairInventory:
-    return PairInventory(get_module(module_name), seed=seed)
+    with trace.span("pud.inventory"):
+        return PairInventory(get_module(module_name), seed=seed)
 
 
 def inventory_for(module: ModuleConfig, seed: int = 0) -> PairInventory:
@@ -320,8 +322,8 @@ class PudIsa:
         j = np.arange(sim.shared_w)
         f_cols = 2 * j + 1 if self.f_sub == lo else 2 * j
         l_cols = 2 * j + 1 if self.l_sub == lo else 2 * j
-        self._f_cols = torch.from_numpy(f_cols).to(sim.device)
-        self._l_cols = torch.from_numpy(l_cols).to(sim.device)
+        self._f_cols = trace.to_device(f_cols, sim.device)
+        self._l_cols = trace.to_device(l_cols, sim.device)
         # the same column sets as contiguous storage-layout slices
         _lo, self._f_sl, self._l_sl = sim._col_slices(self.f_sub, self.l_sub)
         self._pair_cursor: dict[tuple[int, int], int] = {}
@@ -470,16 +472,17 @@ class PudIsa:
         resident R_F-side row.  Returns the (result l-row, restored-source
         f-row) handles."""
         kind, payload = source
-        if kind == "clone":
-            for r in act.rows_f:
-                self.clone_word(self.f_sub, int(payload), int(r))
-        else:
-            self.sim.write_cols_multi(
-                self.f_sub, act.rows_f, self._f_sl,
-                self.sim.as_tensor(payload)[..., None, :])
-            self.stats.writes += act.n_rf
-            self.stats.cost = self.stats.cost \
-                + self.cost_model.write_row().scaled(act.n_rf)
+        with trace.span("pud.apa.stage"):
+            if kind == "clone":
+                for r in act.rows_f:
+                    self.clone_word(self.f_sub, int(payload), int(r))
+            else:
+                self.sim.write_cols_multi(
+                    self.f_sub, act.rows_f, self._f_sl,
+                    self.sim.as_tensor(payload)[..., None, :])
+                self.stats.writes += act.n_rf
+                self.stats.cost = self.stats.cost \
+                    + self.cost_model.write_row().scaled(act.n_rf)
         self.sim.apa(self.sim.global_addr(self.f_sub, rf),
                      self.sim.global_addr(self.l_sub, rl),
                      first_act_restored=True)
@@ -494,9 +497,13 @@ class PudIsa:
         """In-DRAM NOT: the (noisy) complement of ``bits`` ((w,) or, on a
         batched sim, (T, w)).  ``pair`` pins the (R_F, R_L) rows,
         ``pair_index`` picks from the inventory, default walks scrambled."""
-        rf, rl, act = self.plan_not(n_dst, pair_index=pair_index, pair=pair)
-        res_row, _src_row = self.exec_not(rf, rl, act, ("write", bits))
-        return self._result_word(self.l_sub, res_row, "l")
+        with trace.span("pud.apa"):
+            with trace.span("pud.apa.plan"):
+                rf, rl, act = self.plan_not(n_dst, pair_index=pair_index,
+                                            pair=pair)
+            res_row, _src_row = self.exec_not(rf, rl, act, ("write", bits))
+            with trace.span("pud.apa.readout"):
+                return self._result_word(self.l_sub, res_row, "l")
 
     def plan_nary(self, op: str, n: int, *, pair_index: int | None = None,
                   pair: tuple[int, int] | None = None):
@@ -543,40 +550,41 @@ class PudIsa:
         the l row holds the AND/OR result, the f row its complement."""
         n = act.n_rf
         base, _is_ref = _base_op(op.lower())
-        # reference block: N-1 constants + one Frac row (§6.1.2)
-        if ref_row is None:
-            const = 1.0 if base == "and" else 0.0
-            self.sim.fill_rows(self.f_sub, act.rows_f[:-1], const,
-                               cols=self._f_sl)
-            self.stats.writes += n - 1
-            self.stats.cost = self.stats.cost \
-                + self.cost_model.write_row().scaled(n - 1)
-        else:
-            for r in act.rows_f[:-1]:
-                self.clone_word(self.f_sub, int(ref_row), int(r))
-        self.sim.frac_row(self.f_sub, act.rows_f[-1])
-        self.stats.fracs += 1
-        # compute block: clones in place, host words in one strided scatter
-        if isinstance(sources, tuple) and sources[0] == "write_stack":
-            stack = self._stack_words(sources[1])
-            n_wr = stack.shape[-2]
-            self.sim.write_cols_multi(self.l_sub, act.rows_l[:n_wr],
-                                      self._l_sl, stack)
-            self.stats.writes += n_wr
-        else:
-            wr_rows, wr_bits = [], []
-            for i, (kind, payload) in enumerate(sources):
-                if kind == "clone":
-                    self.clone_word(self.l_sub, int(payload),
-                                    int(act.rows_l[i]))
-                else:
-                    wr_rows.append(int(act.rows_l[i]))
-                    wr_bits.append(payload)
-            if wr_rows:
-                self.sim.write_cols_multi(self.l_sub, wr_rows, self._l_sl,
-                                          self._stack_words(wr_bits))
-                self.stats.writes += len(wr_rows)
-            n_wr = len(wr_rows)
+        with trace.span("pud.apa.stage"):
+            # reference block: N-1 constants + one Frac row (§6.1.2)
+            if ref_row is None:
+                const = 1.0 if base == "and" else 0.0
+                self.sim.fill_rows(self.f_sub, act.rows_f[:-1], const,
+                                   cols=self._f_sl)
+                self.stats.writes += n - 1
+                self.stats.cost = self.stats.cost \
+                    + self.cost_model.write_row().scaled(n - 1)
+            else:
+                for r in act.rows_f[:-1]:
+                    self.clone_word(self.f_sub, int(ref_row), int(r))
+            self.sim.frac_row(self.f_sub, act.rows_f[-1])
+            self.stats.fracs += 1
+            # compute block: clones in place, host words in one strided scatter
+            if isinstance(sources, tuple) and sources[0] == "write_stack":
+                stack = self._stack_words(sources[1])
+                n_wr = stack.shape[-2]
+                self.sim.write_cols_multi(self.l_sub, act.rows_l[:n_wr],
+                                          self._l_sl, stack)
+                self.stats.writes += n_wr
+            else:
+                wr_rows, wr_bits = [], []
+                for i, (kind, payload) in enumerate(sources):
+                    if kind == "clone":
+                        self.clone_word(self.l_sub, int(payload),
+                                        int(act.rows_l[i]))
+                    else:
+                        wr_rows.append(int(act.rows_l[i]))
+                        wr_bits.append(payload)
+                if wr_rows:
+                    self.sim.write_cols_multi(self.l_sub, wr_rows, self._l_sl,
+                                              self._stack_words(wr_bits))
+                    self.stats.writes += len(wr_rows)
+                n_wr = len(wr_rows)
         self.sim.op_boolean(op, self.sim.global_addr(self.f_sub, rf),
                             self.sim.global_addr(self.l_sub, rl),
                             random_pattern=random_pattern)
@@ -597,20 +605,25 @@ class PudIsa:
         operands.  Fan-ins the decoder cannot express are padded with
         identity operands (all-1 rows for AND, all-0 for OR) up to the next
         supported N."""
-        n = len(operands)
-        n_hw, rf, rl, act = self.plan_nary(op, n, pair_index=pair_index,
-                                           pair=pair)
-        base, is_ref = _base_op(op.lower())
-        if n_hw != n:
-            ident = torch.full((self.width,), 1 if base == "and" else 0,
-                               dtype=torch.uint8, device=self.sim.device)
-            operands = list(operands) + [ident] * (n_hw - n)
-        res_l, res_f = self.exec_nary(op, rf, rl, act,
-                                      ("write_stack", operands),
-                                      random_pattern=random_pattern)
-        if is_ref:   # NAND/NOR lands in the reference subarray rows
-            return self._result_word(self.f_sub, res_f, "f")
-        return self._result_word(self.l_sub, res_l, "l")
+        with trace.span("pud.apa"):
+            n = len(operands)
+            with trace.span("pud.apa.plan"):
+                n_hw, rf, rl, act = self.plan_nary(
+                    op, n, pair_index=pair_index, pair=pair)
+                base, is_ref = _base_op(op.lower())
+                if n_hw != n:
+                    ident = torch.full((self.width,),
+                                       1 if base == "and" else 0,
+                                       dtype=torch.uint8,
+                                       device=self.sim.device)
+                    operands = list(operands) + [ident] * (n_hw - n)
+            res_l, res_f = self.exec_nary(op, rf, rl, act,
+                                          ("write_stack", operands),
+                                          random_pattern=random_pattern)
+            with trace.span("pud.apa.readout"):
+                if is_ref:   # NAND/NOR lands in the reference subarray rows
+                    return self._result_word(self.f_sub, res_f, "f")
+                return self._result_word(self.l_sub, res_l, "l")
 
     # composite ops (functional completeness in action) ------------------
     def op_xor(self, a, b) -> torch.Tensor:

@@ -36,6 +36,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels import ops as kops
 from ..kernels.senseamp import round_to
 from . import analog as A
@@ -55,6 +56,9 @@ ROWCLONE_FAIL_P = 2e-6
 DRAWS = ("device", "numpy")
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+#: bytes of one cell of a slot buffer (float32)
+CELL_BYTES = 4
 
 
 def resolve_device(device) -> torch.device:
@@ -110,11 +114,11 @@ class _NumpyDraws:
 
     def normal(self, shape, dtype: torch.dtype) -> torch.Tensor:
         x = self.rng.standard_normal(shape, dtype=_NP_DTYPE[dtype])
-        return torch.from_numpy(x).to(self.device)
+        return trace.to_device(x, self.device)
 
     def uniform(self, shape, dtype: torch.dtype) -> torch.Tensor:
         x = self.rng.random(shape, dtype=_NP_DTYPE[dtype])
-        return torch.from_numpy(x).to(self.device)
+        return trace.to_device(x, self.device)
 
 
 class _TorchDraws:
@@ -240,8 +244,8 @@ class BankSim:
                                      np.arange(rb)[0::2]])
         self._invperm = np.empty(rb, dtype=np.int64)
         self._invperm[self._perm] = np.arange(rb)
-        self._perm_t = torch.from_numpy(self._perm).to(self.device)
-        self._invperm_t = torch.from_numpy(self._invperm).to(self.device)
+        self._perm_t = trace.to_device(self._perm, self.device)
+        self._invperm_t = trace.to_device(self._invperm, self.device)
         self.log = CommandLog()
 
     # ---------------- geometry helpers ----------------
@@ -257,11 +261,15 @@ class BankSim:
         """Host or device data as a ``dtype`` tensor on this bank's device."""
         if isinstance(x, torch.Tensor):
             return x.to(device=self.device, dtype=dtype)
-        return torch.as_tensor(np.asarray(x), device=self.device).to(dtype)
+        return trace.to_device(x, self.device).to(dtype)
 
     def _index(self, idx: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(idx, dtype=np.int64)) \
-            .to(self.device)
+        return trace.to_device(np.asarray(idx, dtype=np.int64), self.device)
+
+    def _scattered(self, n_rows: int, n_cols: int) -> None:
+        """Count ``n_rows`` rows of ``n_cols`` cells written into a slot
+        buffer by row index, in every trial (``scatter_bytes``)."""
+        trace.count("scatter_bytes", CELL_BYTES * self._T * n_rows * n_cols)
 
     # ---------------- compact row-remapped cell storage ----------------
     def _map_rows(self, sub: int, rows) -> np.ndarray:
@@ -396,6 +404,7 @@ class BankSim:
                 f"axis), got {tuple(bits.shape)}")
         i = self._row(sub, row)
         self._cells(sub)[:, i] = bits[..., self._perm_t]
+        self._scattered(1, w)
         self._log_wr(sub=sub)
 
     def write_cols_multi(self, sub: int, rows, cols: slice, bits) -> None:
@@ -405,7 +414,9 @@ class BankSim:
         arr = self._cells(sub)
         if self.track_unshared:
             arr[:, idx] = 0.0
+            self._scattered(len(idx), self.geom.row_bits)
         arr[:, idx, cols] = self.as_tensor(bits)
+        self._scattered(len(idx), cols.stop - cols.start)
         self._log_wr(len(idx), sub=sub)
 
     def fill_rows(self, sub: int, rows, value: float, cols=None) -> None:
@@ -415,8 +426,10 @@ class BankSim:
         idx = self._index(self._map_rows(sub, rows))
         if not self.track_unshared and cols is not None:
             self._cells(sub)[:, idx, cols] = value
+            self._scattered(len(idx), cols.stop - cols.start)
         else:
             self._cells(sub)[:, idx] = value
+            self._scattered(len(idx), self.geom.row_bits)
         self._log_wr(len(idx), sub=sub)
 
     def read_row(self, sub: int, row: int) -> torch.Tensor:
@@ -431,6 +444,7 @@ class BankSim:
         # map first: a first touch can grow (reallocate) the slot buffer
         i = self._row(sub, row)
         self._cells(sub)[:, i] = 0.5
+        self._scattered(1, self.geom.row_bits)
         t = self.timings
         self.log.add("FRAC", 2 * (VIOLATED_TRAS_NS + t.tRP),
                      2 * (ENERGY_PJ["act"] + ENERGY_PJ["pre"]),
@@ -454,6 +468,7 @@ class BankSim:
             copied = torch.where(flip, 1.0 - restored, restored)
         arr[:, idst] = copied
         arr[:, isrc] = restored  # source restored
+        self._scattered(2, self.geom.row_bits)
         t = self.timings
         self.log.add("RC", t.tRAS + VIOLATED_TRP_NS + t.tRAS + t.tRP,
                      2 * ENERGY_PJ["act"] + 2 * ENERGY_PJ["pre"],
@@ -534,7 +549,7 @@ class BankSim:
         nz = rng.normal(shape, dt)
         u0 = rng.uniform(shape, dt)
         u1 = None if self.batched else rng.uniform(shape, dt)
-        static = torch.from_numpy(static).to(device=self.device, dtype=dt)
+        static = trace.to_device(static, self.device, dt)
         if self.device.type == "cuda" and dt != torch.float32:
             # the kernel is float32 (the reference's Pallas path casts too)
             nz, u0, u1, static = (x.to(torch.float32)
@@ -561,6 +576,7 @@ class BankSim:
             v = v.to(dt) + noise
         out = (v > 0.0).to(torch.float32)
         arr[:, self._index(rows), cols] = out[:, None, :]
+        self._scattered(len(rows), cols.stop - cols.start)
 
     def apa(self, rf_global: int, rl_global: int, *,
             first_act_restored: bool = False,
@@ -572,64 +588,70 @@ class BankSim:
         fully restored and drives the R_L rows through the shared SAs.
         Otherwise both sides charge-share and the SA compares (§6).
         """
-        rps = self.geom.rows_per_subarray
-        f_sub, f_row = divmod(rf_global, rps)
-        l_sub, l_row = divmod(rl_global, rps)
-        act = DEC.activation_pattern(self.module, f_row, l_row, seed=self.seed)
-        t = self.timings
-        t_first = t.tRAS if first_act_restored else VIOLATED_TRAS_NS
-        self.log.add("APA", t_first + VIOLATED_TRP_NS + t.tRAS + t.tRP,
-                     (act.n_rf + act.n_rl) * ENERGY_PJ["act"]
-                     + 2 * ENERGY_PJ["pre"],
-                     bank=self.bank, sub=f_sub)
-        if act.n_rf == 0:
-            return act
-        if self.module.activation is ActivationSupport.SEQUENTIAL \
-                and not first_act_restored:
-            return act  # sequential activation cannot charge-share both sides
-        stripe, f_cols, l_cols = self._col_slices(f_sub, l_sub)
-        rows_f = self._map_rows(f_sub, act.rows_f)
-        rows_l = self._map_rows(l_sub, act.rows_l)
-        arr_f, arr_l = self._cells(f_sub), self._cells(l_sub)
-        idx_f, idx_l = self._index(rows_f), self._index(rows_l)
-        rng = self._rng()
-        geom = self.geom
-        reg_f = geom.distance_region(f_row, toward_upper=f_sub > l_sub)
-        reg_l = geom.distance_region(l_row, toward_upper=l_sub > f_sub)
+        with trace.span("pud.apa.plan"):
+            rps = self.geom.rows_per_subarray
+            f_sub, f_row = divmod(rf_global, rps)
+            l_sub, l_row = divmod(rl_global, rps)
+            act = DEC.activation_pattern(self.module, f_row, l_row,
+                                         seed=self.seed)
+            t = self.timings
+            t_first = t.tRAS if first_act_restored else VIOLATED_TRAS_NS
+            self.log.add("APA", t_first + VIOLATED_TRP_NS + t.tRAS + t.tRP,
+                         (act.n_rf + act.n_rl) * ENERGY_PJ["act"]
+                         + 2 * ENERGY_PJ["pre"],
+                         bank=self.bank, sub=f_sub)
+            if act.n_rf == 0:
+                return act
+            if self.module.activation is ActivationSupport.SEQUENTIAL \
+                    and not first_act_restored:
+                return act  # sequential activation cannot charge-share
+            stripe, f_cols, l_cols = self._col_slices(f_sub, l_sub)
+            rows_f = self._map_rows(f_sub, act.rows_f)
+            rows_l = self._map_rows(l_sub, act.rows_l)
+            arr_f, arr_l = self._cells(f_sub), self._cells(l_sub)
+            idx_f, idx_l = self._index(rows_f), self._index(rows_l)
+            rng = self._rng()
+            geom = self.geom
+            reg_f = geom.distance_region(f_row, toward_upper=f_sub > l_sub)
+            reg_l = geom.distance_region(l_row, toward_upper=l_sub > f_sub)
 
         if first_act_restored:
             # ---- NOT protocol: R_F drives, R_L receives the complement ----
-            n_src = act.n_rf
-            u = A.u_n(n_src, self.params)
-            v_src = 0.5 + (self._row_sum(arr_f, rows_f, f_cols)
-                           - round_to(0.5 * n_src, torch.float32)) \
-                * round_to(u, torch.float32)
-            src_bit = v_src > 0.5                       # (T, w)
-            if self.error_model == "analog":
-                p_ok = A.not_success(
-                    act.n_rl, pattern=("N2N" if act.kind == "N:2N" else "NN"),
-                    p=self.params, temp_c=self.temp_c,
-                    src_region=reg_f, dst_region=reg_l,
-                    speed_mts=self.module.speed_mts,
-                    mfr=self.module.manufacturer.value,
-                    density_gb=self.module.density_gb,
-                    die_rev=self.module.die_rev)
-                # static per-cell variation around the mean success rate;
-                # E[phi(a + s Z)] = phi(a / sqrt(1+s^2)) keeps the cell-mean
-                # exactly equal to the closed-form not_success.
-                spread = 0.75
-                xi1, _xi2 = self._static_latents(stripe)
-                a = _norm_ppf(np.clip(p_ok, 1e-9, 1 - 1e-9)) \
-                    * math.sqrt(1.0 + spread ** 2)
-                dt = self._noise_dtype
-                z = torch.from_numpy(A.phi(a + spread * _norm_ppf(xi1))) \
-                    .to(device=self.device, dtype=dt)   # (w,) per cell
-                ok = rng.uniform(tuple(src_bit.shape), dt) < z
-            else:
-                ok = torch.ones_like(src_bit)
-            dst_bit = torch.where(ok, ~src_bit, src_bit).to(torch.float32)
-            arr_l[:, idx_l, l_cols] = dst_bit[:, None, :]
-            arr_f[:, idx_f, f_cols] = src_bit.to(torch.float32)[:, None, :]
+            with trace.span("pud.apa.resolve"):
+                n_src = act.n_rf
+                u = A.u_n(n_src, self.params)
+                v_src = 0.5 + (self._row_sum(arr_f, rows_f, f_cols)
+                               - round_to(0.5 * n_src, torch.float32)) \
+                    * round_to(u, torch.float32)
+                src_bit = v_src > 0.5                       # (T, w)
+                if self.error_model == "analog":
+                    p_ok = A.not_success(
+                        act.n_rl,
+                        pattern=("N2N" if act.kind == "N:2N" else "NN"),
+                        p=self.params, temp_c=self.temp_c,
+                        src_region=reg_f, dst_region=reg_l,
+                        speed_mts=self.module.speed_mts,
+                        mfr=self.module.manufacturer.value,
+                        density_gb=self.module.density_gb,
+                        die_rev=self.module.die_rev)
+                    # static per-cell variation around the mean success
+                    # rate; E[phi(a + s Z)] = phi(a / sqrt(1+s^2)) keeps the
+                    # cell-mean exactly equal to the closed-form not_success.
+                    spread = 0.75
+                    xi1, _xi2 = self._static_latents(stripe)
+                    a = _norm_ppf(np.clip(p_ok, 1e-9, 1 - 1e-9)) \
+                        * math.sqrt(1.0 + spread ** 2)
+                    dt = self._noise_dtype
+                    z = trace.to_device(A.phi(a + spread * _norm_ppf(xi1)),
+                                        self.device, dt)     # (w,) per cell
+                    ok = rng.uniform(tuple(src_bit.shape), dt) < z
+                else:
+                    ok = torch.ones_like(src_bit)
+                dst_bit = torch.where(ok, ~src_bit, src_bit).to(torch.float32)
+            with trace.span("pud.apa.writeback"):
+                arr_l[:, idx_l, l_cols] = dst_bit[:, None, :]
+                arr_f[:, idx_f, f_cols] = src_bit.to(torch.float32)[:, None, :]
+                self._scattered(len(idx_l) + len(idx_f), self.shared_w)
         else:
             # ---- Boolean-op protocol: comparator across the stripe ----
             # noise context: the reference level sets the common mode
@@ -639,23 +661,32 @@ class BankSim:
             # is exactly VDD/2) — one reduction over the slot span holding
             # the activated rows (no copy; the ISA allocates them adjacent)
             # and one device-to-host read per APA
-            n_f = act.n_rf
-            lo = int(rows_f.min())
-            per_slot = arr_f[:, lo:int(rows_f.max()) + 1, f_cols].sum(
-                dim=(0, 2), dtype=torch.float64)
-            total = per_slot[self._index(rows_f - lo)].sum()
-            level = float(total) - 0.5 * n_f * self._T * self.shared_w
-            op_ctx = "and" if level >= 0.0 else "or"
-            out = self._resolve(l_sub, rows_l, l_cols, f_sub, rows_f, f_cols,
-                                stripe, op_ctx, regions=(reg_l, reg_f),
-                                random_pattern=random_pattern, rng=rng)
-            outf = out.to(torch.float32)
-            arr_l[:, idx_l, l_cols] = outf[:, None, :]
-            arr_f[:, idx_f, f_cols] = (1.0 - outf)[:, None, :]
+            with trace.span("pud.apa.opctx"):
+                n_f = act.n_rf
+                lo = int(rows_f.min())
+                per_slot = arr_f[:, lo:int(rows_f.max()) + 1, f_cols].sum(
+                    dim=(0, 2), dtype=torch.float64)
+                total = per_slot[self._index(rows_f - lo)].sum()
+                level = float(total) - 0.5 * n_f * self._T * self.shared_w
+                trace.count("reads.opctx")
+                op_ctx = "and" if level >= 0.0 else "or"
+            with trace.span("pud.apa.resolve"):
+                out = self._resolve(l_sub, rows_l, l_cols, f_sub, rows_f,
+                                    f_cols, stripe, op_ctx,
+                                    regions=(reg_l, reg_f),
+                                    random_pattern=random_pattern, rng=rng)
+            with trace.span("pud.apa.writeback"):
+                outf = out.to(torch.float32)
+                arr_l[:, idx_l, l_cols] = outf[:, None, :]
+                arr_f[:, idx_f, f_cols] = (1.0 - outf)[:, None, :]
+                self._scattered(len(idx_l) + len(idx_f), self.shared_w)
         # non-shared columns: same-subarray restore (MAJ against VDD/2)
         if self.track_unshared:
-            self._maj_restore(f_sub, rows_f, self._other_slice(f_cols), rng)
-            self._maj_restore(l_sub, rows_l, self._other_slice(l_cols), rng)
+            with trace.span("pud.apa.writeback"):
+                self._maj_restore(f_sub, rows_f, self._other_slice(f_cols),
+                                  rng)
+                self._maj_restore(l_sub, rows_l, self._other_slice(l_cols),
+                                  rng)
         return act
 
     def apa_then_write(self, rf_global: int, rl_global: int,
@@ -681,6 +712,8 @@ class BankSim:
         _lo, _f_sl, l_sl = self._col_slices(f_sub, l_sub)
         arr_f[:, self._index(rows_f)] = pattern      # exact pattern (Obs. 1)
         arr_l[:, self._index(rows_l), l_sl] = 1.0 - pattern[l_sl]
+        self._scattered(len(rows_f), self.geom.row_bits)
+        self._scattered(len(rows_l), self.shared_w)
         return act
 
     # ---------------- high-level op helpers (ISA entry points) ----------------
