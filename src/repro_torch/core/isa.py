@@ -2,9 +2,11 @@
 
 The port of ``repro.core.isa``.  The pair inventory (a uint64 hash over the
 address cross product — PyTorch has no full uint64 arithmetic), the pair
-walk and the cost model stay host-side numpy/Python, copied from the
-reference; :class:`PudIsa` stages operand words into and reads results out
-of the device-resident :class:`~repro_torch.core.simulator.BankSim`.
+walk and the cost model stay host-side numpy/Python: the walk and the cost
+model copied from the reference, the inventory built in one vectorised
+pass into the reference's arrays; :class:`PudIsa` stages operand words into
+and reads results out of the device-resident
+:class:`~repro_torch.core.simulator.BankSim`.
 Words may come in as numpy arrays or tensors and come back as uint8 tensors
 on the bank's device.
 
@@ -42,6 +44,55 @@ from .simulator import BankSim
 # ---------------------------------------------------------------------------
 # Pair inventory
 # ---------------------------------------------------------------------------
+#: the splitmix64 finalizer's rounds of ``decoder._mix64``: (shift, multiplier)
+_MIX = ((np.uint64(30), np.uint64(0xBF58476D1CE4E5B9)),
+        (np.uint64(27), np.uint64(0x94D049BB133111EB)))
+#: address-grid rows hashed at a time: a block's words stay in the host's
+#: cache through the mix and the category compares
+_BLOCK_ROWS = 64
+
+
+def _pair_categories(module: ModuleConfig, seed: int) -> np.ndarray:
+    """(n, n) uint8 category of every (R_F, R_L) pair: its index into
+    ``decoder._category_table``'s categories, ``len(cats)`` for none.
+
+    ``decoder._pair_hash`` over the grid (uint64 arithmetic wraps as its
+    ``& 0xFF..FF`` does), then ``searchsorted(cum, u)`` decided on
+    integers: with ``u = k / 2**53`` exact, ``cum[j] < u`` holds exactly
+    when ``floor(cum[j] * 2**53) < k``.
+    """
+    n = module.geometry.rows_per_subarray
+    cum, _cats = DEC._category_table(module.max_simultaneous_rows,
+                                     module.supports_n2n)
+    thresholds = np.floor(cum * float(1 << 53)).astype(np.uint64)
+    idx = np.zeros((n, n), dtype=np.uint8)
+    h = np.empty((min(n, _BLOCK_ROWS), n), dtype=np.uint64)
+    tmp = np.empty_like(h)
+    above = np.empty(h.shape, dtype=bool)
+    with np.errstate(over="ignore"):
+        x = (np.uint64(seed) * np.uint64(0x9E3779B97F4A7C15)
+             + np.arange(n, dtype=np.uint64)[:, None])
+        for sh, mul in _MIX:
+            x = (x ^ (x >> sh)) * mul
+        x ^= x >> np.uint64(31)
+        y = np.arange(n, dtype=np.uint64) * np.uint64(0xD6E8FEB86659FD93)
+        for r0 in range(0, n, _BLOCK_ROWS):
+            r1 = min(r0 + _BLOCK_ROWS, n)
+            hb, tb, ab = h[:r1 - r0], tmp[:r1 - r0], above[:r1 - r0]
+            np.bitwise_xor(x[r0:r1], y, out=hb)
+            for sh, mul in _MIX:
+                np.right_shift(hb, sh, out=tb)
+                hb ^= tb
+                hb *= mul
+            np.right_shift(hb, np.uint64(31), out=tb)
+            hb ^= tb
+            hb >>= np.uint64(11)
+            for t in thresholds:
+                np.greater(hb, t, out=ab)
+                idx[r0:r1] += ab
+    return idx
+
+
 class PairInventory:
     """All (R_F row, R_L row) pairs per activation type for a subarray pair.
 
@@ -54,31 +105,24 @@ class PairInventory:
         self.module = module
         self.seed = seed
         n = module.geometry.rows_per_subarray
-        pairs: dict[tuple[int, int], list[tuple[int, int]]] = {}
-        # vectorized category per pair (mirrors decoder.coverage)
-        M = np.uint64(0xFFFFFFFFFFFFFFFF)
-        rf = np.arange(n, dtype=np.uint64)[:, None]
-        rl = np.arange(n, dtype=np.uint64)[None, :]
-        with np.errstate(over="ignore"):
-            x = (np.uint64(seed) * np.uint64(0x9E3779B97F4A7C15) + rf)
-            for sh, mul in ((30, 0xBF58476D1CE4E5B9), (27, 0x94D049BB133111EB)):
-                x = ((x ^ (x >> np.uint64(sh))) * np.uint64(mul)) & M
-            x ^= x >> np.uint64(31)
-            y = (rl * np.uint64(0xD6E8FEB86659FD93)) & M
-            h = x ^ y
-            for sh, mul in ((30, 0xBF58476D1CE4E5B9), (27, 0x94D049BB133111EB)):
-                h = ((h ^ (h >> np.uint64(sh))) * np.uint64(mul)) & M
-            h ^= h >> np.uint64(31)
-        u = (h >> np.uint64(11)).astype(np.float64) / float(1 << 53)
-        cum, cats = DEC._category_table(module.max_simultaneous_rows,
-                                        module.supports_n2n)
-        idx = np.searchsorted(cum, u)
+        _cum, cats = DEC._category_table(module.max_simultaneous_rows,
+                                         module.supports_n2n)
+        # one stable (radix) sort of the row-major pair indices by category:
+        # each category's slice stays row-major, as np.nonzero gives it
+        idx = _pair_categories(module, seed).ravel()
+        order = np.argsort(idx, kind="stable")
+        ends = np.concatenate(
+            ([0], np.cumsum(np.bincount(idx, minlength=len(cats) + 1))))
+        hit = order[:ends[len(cats)]]           # every category but "none"
+        rows_cols = np.empty((len(hit), 2), dtype=np.int64)
+        np.divmod(hit, n, out=(rows_cols[:, 0], rows_cols[:, 1]))
+        # a key that several categories map onto (N:2N on an N:N-only
+        # module) takes their slices in cats order
+        parts: dict[tuple[int, int], list[np.ndarray]] = {}
         for i, cat in enumerate(cats):
-            fs, ls = np.nonzero(idx == i)
-            pairs.setdefault(cat, []).extend(
-                zip(fs.tolist(), ls.tolist(), strict=True))
-        self._pairs = {k: np.asarray(v, dtype=np.int64)
-                       for k, v in pairs.items()}
+            parts.setdefault(cat, []).append(rows_cols[ends[i]:ends[i + 1]])
+        self._pairs = {k: v[0] if len(v) == 1 else np.concatenate(v)
+                       for k, v in parts.items()}
 
     def pairs(self, n_rf: int, n_rl: int) -> np.ndarray:
         """(P, 2) array of (R_F, R_L) rows realizing n_rf:n_rl activation."""
