@@ -6,7 +6,7 @@ row width, temperature, banks and draws; judged against
 ``n``, ``trials``, ``groups``."""
 from __future__ import annotations
 
-from bench.mcjudge import McDriver
+from bench.mcjudge import McDriver, rounds
 from bench.reference import mc as reference
 
 #: the numbers compared, with their limits: exact (a simulator sped up
@@ -30,14 +30,9 @@ def apas(cfg: dict, mix: dict) -> list[dict]:
     one bank), one per round of up to ``banks`` groups stacked on the trial
     axis with a per-bank static plane and threshold."""
     tg = -(-mix["trials"] // mix["groups"])
-    w, n, banks = cfg["module"]["row_bits"] // 2, mix["n"], cfg["banks"]
-    if banks > 1 and cfg["fused"] is not False:
-        full, tail = divmod(mix["groups"], banks)
-        rounds = [banks] * full + ([tail] if tail else [])
-    else:
-        rounds = [1] * mix["groups"]
+    w, n = cfg["module"]["row_bits"] // 2, mix["n"]
     return [{"T": tg * nb, "W": w, "n_com": n, "n_ref": n, "banks": nb}
-            for nb in rounds]
+            for nb in rounds(cfg, mix)]
 
 
 DRIVER = McDriver(call, reference.boolean, LIMITS, apas)

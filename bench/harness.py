@@ -7,7 +7,8 @@ script waits for each answer before it asks for the next: each call starts
 when the last has returned and synchronized.  Call ``i`` of the window runs
 on the seed :func:`call_seed` derives from ``--seed`` and ``i``, so every
 call is a new chip with new draws, at the same sizes; set-up's warm-up
-calls run on seeds outside that series (:func:`warmup_seed`).
+calls run on seeds outside that series (:func:`warmup_seed`), after the
+driver's ``setup``, where it has one, on ``--seed`` itself.
 
 ``--trace 0`` times calls for ``--seconds`` and reports the cell's
 end-to-end metrics.  ``--trace 1`` traces a shorter window with
@@ -103,6 +104,10 @@ class Context:
     host_read_calls: int = 0
     launches: dict = field(default_factory=dict)
     apas: list = field(default_factory=list)
+    #: the cell itself, for a reader that needs its own shapes and counts
+    driver: object = None
+    config: dict = field(default_factory=dict)
+    traffic: dict = field(default_factory=dict)
 
 
 def _on_card(device) -> bool:
@@ -161,7 +166,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, *,
              device="cuda", t_start: float | None = None,
              log=sys.stderr, driver=None) -> dict:
     """One run of ``cell``; -> the result object (the last line's keys).
-    ``driver`` puts another driver in the traffic's place (the control)."""
+    ``driver`` puts another driver in the traffic's place (the control).
+    The driver's ``setup``, where it has one, runs once on ``seed`` before
+    the warm-up calls (``bench/drivers/__init__.py``)."""
     t_start = time.perf_counter() if t_start is None else t_start
     if driver is None:
         driver = load_module(cell.driver, cell.traffic["driver"]).DRIVER
@@ -171,16 +178,22 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, *,
         return driver.call(cfg, mix, s, device)
 
     t_first = time.perf_counter()
+    made = ""
+    if hasattr(driver, "setup"):
+        driver.setup(cfg, mix, seed, device)
+        _sync(device)
+        made = f"the driver's set-up {time.perf_counter() - t_first:.3f} s, "
     warm = []
     for w in range(WARMUP_CALLS):
+        t = time.perf_counter()
         call(warmup_seed(seed, w))
         _sync(device)
-        warm.append(time.perf_counter() - t_first - sum(warm))
-    print(f"[setup] {t_first - t_start:.3f} s to the first call, warm-up "
-          f"calls {', '.join(f'{w:.3f}' for w in warm)} s", file=log)
+        warm.append(time.perf_counter() - t)
+    print(f"[setup] {t_first - t_start:.3f} s to the first call, {made}"
+          f"warm-up calls {', '.join(f'{w:.3f}' for w in warm)} s", file=log)
     ctx = Context(setup_s=time.perf_counter() - t_start,
                   apas=driver.apas(cfg, mix) if hasattr(driver, "apas")
-                  else [])
+                  else [], driver=driver, config=cfg, traffic=mix)
     if not traced:
         calls, walls, failed, window = _timed(call, seed, seconds, device)
         ctx.walls, ctx.n_calls, ctx.window_s = walls, len(walls), window

@@ -11,8 +11,6 @@ from __future__ import annotations
 import sys
 from contextlib import contextmanager
 
-import torch
-
 
 def launch_counts() -> dict:
     """Every ``launches`` counter of the port's kernel modules loaded so far
@@ -28,23 +26,8 @@ def launch_counts() -> dict:
 @contextmanager
 def result_rows():
     """Collect, in order, a copy of every result row block the MC scores
-    (``charz._hits(got, want)``: one per group, or per fused round).
-
-    This wraps a private function of the program: it holds only while the
-    MC entry points score each block through the module-level
-    ``charz._hits``.  A program that scores otherwise leaves ``rows`` empty,
-    and a run judges every result bit as differing, until this reads the
-    rows through a public hook of the entry points instead."""
+    (one per group, or per fused round), through the entry points' own
+    hook, ``charz.collect_rows()``."""
     from repro_torch.core import charz
-    rows: list[torch.Tensor] = []
-    score = charz._hits
-
-    def keep(got, want):
-        rows.append(got.clone())
-        return score(got, want)
-
-    charz._hits = keep
-    try:
+    with charz.collect_rows() as rows:
         yield rows
-    finally:
-        charz._hits = score

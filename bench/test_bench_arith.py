@@ -1,6 +1,8 @@
 """The benchmark's arithmetic, worked by hand: the sense-amp roofline's
 bytes and operations, the APA shapes a mix implies, and the idle share and
 breakdown of a traced window."""
+import json
+
 import pytest
 
 from bench import roofline, timeline
@@ -36,27 +38,39 @@ def test_the_operations_never_bound_these_shapes():
         < nbytes / roofline.PEAKS["hbm_bytes_per_s"]
 
 
-@pytest.mark.parametrize("cell, traffic, shapes", [
-    ("mc.nand16.b1", None,
-     [dict(T=1112, W=W, n_com=16, n_ref=16, banks=1)] * 9),
-    ("mc.nand16.b16", None,
-     [dict(T=3344, W=W, n_com=16, n_ref=16, banks=16)] * 3),
-    ("mc.nand16.b1", "and2",
-     [dict(T=1112, W=W, n_com=2, n_ref=2, banks=1)] * 9),
-    ("mc.not1.b1", None, []),
-])
-def test_the_apas_of_one_call(cell, traffic, shapes):
+def _mc(config, traffic):
+    """An MC configuration and mix of the benchmark, by their names, with
+    the mix's driver."""
     m = Manifest(ROOT)
-    c = m.cell(cell)
-    mix = m.traffic(traffic) if traffic else c.traffic
-    driver = load_module(c.driver, mix["driver"])
-    assert driver.apas(c.config, mix) == shapes
+    cfg = json.loads((ROOT / m.configs[config]["file"]).read_text())
+    mix = m.traffic(traffic)
+    return cfg, mix, load_module(m.driver_path(mix["driver"]),
+                                 mix["driver"]).DRIVER
+
+
+B1, B16 = "hynix_4gb_m_2666.b1", "hynix_4gb_m_2666.b16"
+
+
+@pytest.mark.parametrize("config, traffic, shapes, reads", [
+    (B1, "nand16", [dict(T=1112, W=W, n_com=16, n_ref=16, banks=1)] * 9,
+     18),
+    (B16, "nand16.g48", [dict(T=3344, W=W, n_com=16, n_ref=16, banks=16)] * 3,
+     6),
+    (B1, "and2", [dict(T=1112, W=W, n_com=2, n_ref=2, banks=1)] * 9, 18),
+    (B1, "not1", [], 9),
+])
+def test_the_apas_of_one_call(config, traffic, shapes, reads):
+    """The resolves of one call, and its host reads: a score read a scored
+    block (9 groups on one bank, 3 fused rounds on 16) and an op-context
+    read a resolve."""
+    cfg, mix, driver = _mc(config, traffic)
+    assert driver.apas(cfg, mix) == shapes
+    assert driver.host_reads(cfg, mix) == reads
 
 
 def test_a_tail_round_fuses_the_remaining_banks():
-    c = Manifest(ROOT).cell("mc.nand16.b16")
-    driver = load_module(c.driver, c.traffic["driver"])
-    got = driver.apas(c.config, dict(c.traffic, groups=40, trials=4000))
+    cfg, mix, driver = _mc(B16, "nand16.g48")
+    got = driver.apas(cfg, dict(mix, groups=40, trials=4000))
     assert [a["banks"] for a in got] == [16, 16, 8]
     assert [a["T"] for a in got] == [1600, 1600, 800]
 

@@ -1,15 +1,17 @@
 """The plain reference against the program's entry points on the CPU, at
-a small size, and the control (the reference with its decision in
-bfloat16, in the program's place) caught by a run's own judgement."""
+a small size, and the control (the reference in the precision below the
+configuration's, in the program's place) caught by a run's own judgement,
+at the size its driver names."""
 import io
 
 import pytest
 import torch
 
 from bench import harness
-from bench.manifest import Manifest, load_module
+from bench.conftest import CASES, cells_of_kind, driver_of, small_copy
+from bench.manifest import Manifest
+from bench.mcjudge import McDriver
 
-CELLS = ["mc.nand16.b1", "mc.nand16.b16", "mc.not1.b1"]
 #: a window's first call on a small seed, and a later one on a seed past
 #: 32 bits, as the benchmark's seeds are
 SEEDS = [harness.call_seed(3, 0), harness.call_seed(2**31 + 12345, 7)]
@@ -17,11 +19,11 @@ SEEDS = [harness.call_seed(3, 0), harness.call_seed(2**31 + 12345, 7)]
 
 def _cell(root, name):
     c = Manifest(root).cell(name)
-    return c, load_module(c.driver, c.traffic["driver"]).DRIVER
+    return c, driver_of(c)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", cells_of_kind(McDriver))
 def test_reference_equals_the_entry_point_bit_for_bit(small_checkout, name,
                                                       seed):
     c, driver = _cell(small_checkout, name)
@@ -40,16 +42,29 @@ def test_every_call_of_a_run_is_a_new_chip():
     assert seeds == [harness.call_seed(2**31 + 5, i) for i in range(64)]
 
 
-@pytest.mark.parametrize("name", CELLS)
-def test_the_control_in_bfloat16_is_caught(small_checkout, name):
-    """At a size a test holds (here 16x the other tests' rows), a run with
-    the control in the program's place comes out not correct through the
-    run's own judgement, on every seed tried."""
-    c, driver = _cell(small_checkout, name)
-    c.config["module"]["row_bits"] = 4096
+@pytest.mark.parametrize("toy, name", CASES)
+def test_the_control_in_bfloat16_is_caught(tmp_path, toy, name):
+    """At the size its driver's ``small_control`` names, a run with the
+    control in the program's place comes out not correct through the run's
+    own judgement, on every seed tried."""
+    c, driver = _cell(small_copy(tmp_path, toy), name)
+    c.config, c.traffic = driver.small_control(c.config, c.traffic)
     for seed in (3, 2**31 + 12345):
         result = harness.run_cell(c, seed, 0.0, False, device="cpu",
                                   log=io.StringIO(), driver=driver.control())
         assert result["correct"] is False
-        assert result["checks"]["row_mismatch"]["value"] > 0
-        assert result["checks"]["rate_gap"]["value"] > 0
+        assert any(v["value"] > v["limit"] for v in result["checks"].values())
+
+
+@pytest.mark.parametrize("name", cells_of_kind(McDriver))
+def test_the_mc_control_misses_both_numbers(small_checkout, name):
+    """The MC control at its size, on one call: its rate and its rows both
+    differ from the reference's."""
+    c, driver = _cell(small_checkout, name)
+    cfg, mix = driver.small_control(c.config, c.traffic)
+    control, seed = driver.control(), SEEDS[0]
+    checks = control.judge(cfg, mix, [(seed, control.call(cfg, mix, seed,
+                                                          "cpu"))],
+                           "cpu", io.StringIO())
+    assert checks["row_mismatch"]["value"] > 0
+    assert checks["rate_gap"]["value"] > 0
