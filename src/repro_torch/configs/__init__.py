@@ -1,4 +1,5 @@
-"""Architecture registry: the 10 assigned configs + the FCDRAM substrate.
+"""Architecture registry: the 10 assigned configs + the FCDRAM substrate,
+and the configs the port serves alone (:data:`PORT_ARCHS`).
 
 ``get_config("<id>")`` accepts both dashed ids (CLI) and module names.
 """
@@ -22,6 +23,12 @@ ARCHS: tuple[str, ...] = (
 )
 
 
+#: served by the port only: no reference config, no dry-run cell, no mesh
+PORT_ARCHS: tuple[str, ...] = (
+    "nemotron-3-nano-30b-a3b",
+)
+
+
 def _module_name(arch: str) -> str:
     return arch.replace("-", "_").replace(".", "_")
 
@@ -31,7 +38,8 @@ def get_config(arch: str) -> ModelConfig:
     try:
         mod = importlib.import_module(f".{name}", __package__)
     except ModuleNotFoundError as e:
-        raise KeyError(f"unknown arch {arch!r}; known: {list(ARCHS)}") from e
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{[*ARCHS, *PORT_ARCHS]}") from e
     return mod.CONFIG
 
 

@@ -4,6 +4,21 @@ training loop's ``TrainConfig`` (a copy of ``repro.models.config``).
 One dataclass drives dense GQA transformers, MoE, SSM (Mamba2/SSD), hybrid
 (parallel attention+SSM), audio-token decoders and cross-attention VLM
 backbones.  Exact per-arch instantiations live in ``repro_torch.configs``.
+
+A non-empty ``layer_pattern`` (the port's own, a field of
+:class:`PatternConfig`; the reference has none) gives
+each layer one of three single-mixer kinds, one character a layer: ``M`` a
+Mamba-2 mixer, ``E`` a MoE, ``*`` attention.  Such a layer computes ``x +
+mixer(rmsnorm(x))`` and has no second sub-layer; ``block_type`` is then
+unused.  The MoE options it brings: ``mlp_act="relu2"`` experts
+(``down(relu(up(h))²)``, no gate projection), ``router="sigmoid"`` with a
+score-correction bias (``router_bias``: it picks the top k, the weights are
+the plain scores) and ``routed_scaling``, and the dropless dispatch
+(``capacity_factor = 0``).  The SSM options: an explicit head count
+(``ssm_n_heads``; ``d_inner = ssm_n_heads · ssm_head_dim``), ``ssm_groups``
+groups of B and C (head ``h`` reads group ``h // (heads / groups)``) and a
+gated RMSNorm over each of ``ssm_groups`` slices of ``d_inner``.
+``rope=False`` leaves the attention without positional embedding.
 ``fused_attention`` has no effect in the port (every attention without
 ``extra_mask`` runs the flash-attention kernels, forward and backward).
 """
@@ -11,6 +26,11 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+
+
+#: the layer kinds of ``layer_pattern``, by character (Nemotron-H's
+#: ``hybrid_override_pattern``)
+LAYER_KINDS = {"M": "ssm", "E": "moe", "*": "attention"}
 
 
 @dataclass(frozen=True)
@@ -36,7 +56,7 @@ class ModelConfig:
     n_shared_experts: int = 0
     moe_top_k: int = 0
     d_expert: int = 0                # routed expert hidden size
-    capacity_factor: float = 1.25
+    capacity_factor: float = 1.25    # 0 = dropless (no capacity)
     # --- SSM (Mamba2 / SSD) ---
     ssm_state: int = 0
     ssm_expand: int = 2              # d_inner = expand * d_model
@@ -61,6 +81,17 @@ class ModelConfig:
     pud_masks: bool = True           # compose attention masks as bit-planes
     quant_proj: str = "none"         # none | binary (XNOR popcount linears)
 
+    # --- the port's own options (fields of :class:`PatternConfig`; class
+    # attributes here, so that a ModelConfig's fields stay the reference's)
+    layer_pattern = ""               # "" | one of M, E, * a layer
+    rope = True                      # False: no positional embedding
+    mlp_act = "swiglu"               # swiglu | relu2 (experts, shared too)
+    router = "softmax"               # softmax | sigmoid
+    router_bias = False              # sigmoid: score-correction bias
+    routed_scaling = 1.0             # the routed sum's factor
+    ssm_n_heads = 0                  # 0 -> expand * d_model / head_dim
+    ssm_groups = 1                   # groups of B and C (and of the norm)
+
     @property
     def hd(self) -> int:
         if self.head_dim:
@@ -69,10 +100,32 @@ class ModelConfig:
 
     @property
     def is_attention_free(self) -> bool:
+        if self.layer_pattern:
+            return "*" not in self.layer_pattern
         return self.block_type == "ssm"
 
     @property
+    def layer_kinds(self) -> tuple[str, ...]:
+        """Each layer's kind: ``"attention"``, ``"ssm"`` or ``"moe"`` for a
+        pattern model; every layer ``block_type`` otherwise."""
+        if not self.layer_pattern:
+            return (self.block_type,) * self.n_layers
+        return tuple(LAYER_KINDS[c] for c in self.layer_pattern)
+
+    @property
+    def has_ssm(self) -> bool:
+        """Some layer holds an SSM state (prompts pad to ``ssm_chunk``)."""
+        return any(k in ("ssm", "hybrid") for k in self.layer_kinds)
+
+    @property
+    def n_attention_layers(self) -> int:
+        """Layers that attend over a KV cache (cross blocks not counted)."""
+        return sum(k in ("attention", "hybrid") for k in self.layer_kinds)
+
+    @property
     def d_inner(self) -> int:
+        if self.ssm_n_heads:
+            return self.ssm_n_heads * self.ssm_head_dim
         return self.ssm_expand * self.d_model
 
     @property
@@ -84,9 +137,41 @@ class ModelConfig:
         """Sub-quadratic decode state (SSM/hybrid/sliding-window archs)."""
         return self.block_type in ("ssm", "hybrid") or self.sliding_window > 0
 
+    def __post_init__(self):
+        if self.layer_pattern:
+            bad = set(self.layer_pattern) - set(LAYER_KINDS)
+            if bad or len(self.layer_pattern) != self.n_layers:
+                raise ValueError(
+                    f"{self.name}: layer_pattern {self.layer_pattern!r} "
+                    f"wants {self.n_layers} of {sorted(LAYER_KINDS)}")
+
+    def _pattern_param_count(self) -> int:
+        """Exact count of a pattern model: per layer its pre-norm and its
+        mixer — attention q, k, v, o; Mamba-2 in / out projections, the
+        conv with its bias, ``A_log``, ``D``, ``dt_bias`` and the grouped
+        norm's scale; MoE router and its bias, the routed and shared
+        experts (two matrices each under relu², three under SwiGLU)."""
+        d, hd = self.d_model, self.hd
+        mats = 2 if self.mlp_act == "relu2" else 3
+        di, nh = self.d_inner, self.ssm_heads
+        gs = 2 * self.ssm_groups * self.ssm_state
+        per = {
+            "attention": 2 * d * self.n_heads * hd
+            + 2 * d * self.n_kv_heads * hd,
+            "ssm": d * (2 * di + gs + nh) + di * d
+            + (self.ssm_conv + 1) * (di + gs) + 3 * nh + di,
+            "moe": d * self.n_experts + self.n_experts * self.router_bias
+            + mats * d * self.d_expert * self.n_experts
+            + mats * d * self.d_ff * self.n_shared_experts,
+        }
+        n = self.vocab * d * (1 if self.tie_embeddings else 2) + d
+        return n + sum(per[k] + d for k in self.layer_kinds)
+
     def param_count(self) -> int:
         """Approximate parameter count (documented formula, used for
-        MODEL_FLOPS in the roofline)."""
+        MODEL_FLOPS in the roofline); exact for a pattern model."""
+        if self.layer_pattern:
+            return self._pattern_param_count()
         d, l, v = self.d_model, self.n_layers, self.vocab
         hd = self.hd
         n = v * d  # embedding
@@ -120,8 +205,11 @@ class ModelConfig:
         if not self.moe:
             return self.param_count()
         full = self.param_count()
-        inactive = (self.n_experts - self.moe_top_k) * 3 * self.d_model \
-            * self.d_expert * self.n_layers
+        mats = 2 if self.mlp_act == "relu2" else 3
+        n_moe = sum(k == "moe" for k in self.layer_kinds) \
+            if self.layer_pattern else self.n_layers
+        inactive = (self.n_experts - self.moe_top_k) * mats * self.d_model \
+            * self.d_expert * n_moe
         return full - inactive
 
     def replace(self, **kw) -> "ModelConfig":
@@ -140,13 +228,35 @@ class ModelConfig:
         if self.moe:
             kw.update(n_experts=4, n_shared_experts=min(self.n_shared_experts, 1),
                       moe_top_k=min(self.moe_top_k, 2), d_expert=32)
-        if self.block_type in ("ssm", "hybrid"):
+        if self.has_ssm:
             kw.update(ssm_state=8, ssm_head_dim=16, ssm_chunk=16)
+        if self.ssm_n_heads:
+            kw.update(ssm_n_heads=4, ssm_groups=min(self.ssm_groups, 2))
+        if self.layer_pattern:
+            # one layer of each kind the pattern has, in the order met
+            kinds = "".join(dict.fromkeys(self.layer_pattern))
+            kw.update(layer_pattern=kinds, n_layers=len(kinds))
         if self.cross_attn_every:
             kw.update(cross_attn_every=2, n_image_tokens=8)
         if self.sliding_window:
             kw.update(sliding_window=16)
         return self.replace(**kw)
+
+
+@dataclass(frozen=True)
+class PatternConfig(ModelConfig):
+    """A :class:`ModelConfig` with the port's own options as fields: the
+    per-layer pattern of single-mixer layers and what its layers take (see
+    the module's docstring).  Nemotron-H is one."""
+
+    layer_pattern: str = ""
+    rope: bool = True
+    mlp_act: str = "swiglu"
+    router: str = "softmax"
+    router_bias: bool = False
+    routed_scaling: float = 1.0
+    ssm_n_heads: int = 0
+    ssm_groups: int = 1
 
 
 @dataclass(frozen=True)

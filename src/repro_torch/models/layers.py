@@ -303,7 +303,9 @@ def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """x: (B, S, D); positions (B, S) int32.  Without a cache (training,
     a plain forward) the attention is :func:`fused_attention`, or with
     ``extra_mask`` (B, S, S) the unfused path, the plain twin with the
-    mask (the reference's routing).  kv_cache: {"k", "v": (B, S_max, KV,
+    mask (the reference's routing).  ``cfg.rope`` False: q and k go
+    unrotated (no positional embedding; the positions still mask).
+    kv_cache: {"k", "v": (B, S_max, KV,
     hd), "pos": (B, S_max) int32}, **updated in place** and returned;
     positions sliced from a longer row are copied to aligned rows for the
     kernel (:func:`_aligned`).  Decode (S == 1)
@@ -319,8 +321,9 @@ def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if cfg.qk_norm:
         xq = rmsnorm(p["q_norm"], xq, cfg.norm_eps)
         xk = rmsnorm(p["k_norm"], xk, cfg.norm_eps)
-    xq = apply_rope(xq, positions, cfg.rope_theta)
-    xk = apply_rope(xk, positions, cfg.rope_theta)
+    if cfg.rope:
+        xq = apply_rope(xq, positions, cfg.rope_theta)
+        xk = apply_rope(xk, positions, cfg.rope_theta)
     positions = positions.to(torch.int32)
     if not isinstance(positions, DTensor):
         positions = _aligned(positions)
@@ -458,23 +461,30 @@ def apply_cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# SwiGLU FFN
+# SwiGLU / relu² FFN
 # ---------------------------------------------------------------------------
 def init_mlp(gen: torch.Generator, cfg: ModelConfig,
              d_ff: int | None = None) -> dict:
+    """SwiGLU's three matrices, or relu²'s two (``cfg.mlp_act``)."""
     dt = _dt(cfg, "param")
     d_ff = d_ff or cfg.d_ff
+    gate = {} if cfg.mlp_act == "relu2" else {
+        "w_gate": dense_init(gen, cfg.d_model, d_ff, dt)}
     return {
-        "w_gate": dense_init(gen, cfg.d_model, d_ff, dt),
+        **gate,
         "w_up": dense_init(gen, cfg.d_model, d_ff, dt),
         "w_down": dense_init(gen, d_ff, cfg.d_model, dt),
     }
 
 
 def apply_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU ``down(silu(gate(x)) · up(x))``, or relu² ``down(relu(up(x))²)``
+    (the square at the compute type)."""
     cdt = _dt(cfg, "compute")
-    g = F.silu(x @ p["w_gate"].to(cdt))
     u = x @ p["w_up"].to(cdt)
+    if cfg.mlp_act == "relu2":
+        return torch.relu(u).square() @ p["w_down"].to(cdt)
+    g = F.silu(x @ p["w_gate"].to(cdt))
     return (g * u) @ p["w_down"].to(cdt)
 
 

@@ -6,8 +6,15 @@ Input projection to (z, x, B, C, dt), a causal depthwise conv on (x, B, C),
 one scalar decay ``A = -exp(a_log)`` per head, the SSD over chunks (the
 quadratic dual form within a chunk, the state recurrence between chunks),
 a gated RMSNorm and the output projection.  Shapes: ``d_inner = expand ·
-d_model``, ``nh = d_inner / ssm_head_dim`` heads, state ``N =
-ssm_state``.
+d_model`` (or ``ssm_n_heads · ssm_head_dim``), ``nh = d_inner /
+ssm_head_dim`` heads, state ``N = ssm_state``, ``G = ssm_groups`` groups of
+B and C (each ``N`` wide; head ``h`` reads group ``h // (nh / G)``), and
+the gated RMSNorm taken over each of ``G`` equal slices of ``d_inner``
+(Mamba-2's grouped norm; one slice for ``G = 1``).
+
+While a profile records (:mod:`repro_torch.trace`), the chunked SSD of an
+eager call runs inside an ``ssm.scan`` span; a CUDA graph replay opens
+none.
 
 The reference's float32 sections are kept: the SSD and the recurrent step
 run in float32 on float32 copies of x, B, C and dt; the conv, the gate and
@@ -25,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 
+from .. import trace
 from .config import ModelConfig
 from .layers import (_dt, batch_placements, dense_init, local_call,
                      row_partial)
@@ -38,16 +46,21 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     of a log-uniform draw in [1e-3, 1e-1], ``d_skip`` ones."""
     dt = _dt(cfg, "param")
     dev = gen.device
-    d, di, ds, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    conv_dim = di + 2 * ds
+    d, di, nh = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    gs = cfg.ssm_groups * cfg.ssm_state
+    conv_dim = di + 2 * gs
     lo, hi = math.log(1e-3), math.log(1e-1)
     p = {
         # fused input projection: z, x, B, C, dt
-        "w_in": dense_init(gen, d, 2 * di + 2 * ds + nh, dt),
+        "w_in": dense_init(gen, d, 2 * di + 2 * gs + nh, dt),
         "conv_w": (torch.randn((cfg.ssm_conv, conv_dim), generator=gen,
                                device=dev)
                    / math.sqrt(cfg.ssm_conv)).to(dt),
-        "conv_b": torch.zeros((conv_dim,), dtype=dt, device=dev),
+        # a pattern model draws its conv bias N(0, 1/kw), so that the
+        # bias is exercised (the published checkpoints carry one)
+        "conv_b": (torch.randn((conv_dim,), generator=gen, device=dev)
+                   / math.sqrt(cfg.ssm_conv)).to(dt) if cfg.layer_pattern
+        else torch.zeros((conv_dim,), dtype=dt, device=dev),
         "a_log": torch.log(torch.linspace(*A_INIT_RANGE, nh, device=dev)),
         "dt_bias": torch.log(torch.expm1(torch.exp(
             torch.rand((nh,), generator=gen, device=dev) * (hi - lo) + lo))),
@@ -72,11 +85,15 @@ def _ssd_chunked(x, dtv, a_log, bm, cm, chunk: int):
     """SSD over chunks.
 
     x (B, S, NH, HD) inputs (conv'd and activated), dtv (B, S, NH) the
-    softplus'd step, a_log (NH,), bm / cm (B, S, N) the state's input and
-    output projections (one group).  -> (y (B, S, NH, HD), the final state
-    (B, NH, N, HD))."""
+    softplus'd step, a_log (NH,), bm / cm (B, S, G, N) the state's input
+    and output projections, head ``h`` reading group ``h // (NH / G)``
+    ((B, S, N): one group).  -> (y (B, S, NH, HD), the final state (B, NH,
+    N, HD))."""
+    if bm.dim() == 3:
+        bm, cm = bm[:, :, None], cm[:, :, None]
     b, s, nh, hd = x.shape
-    n = bm.shape[-1]
+    g, n = bm.shape[-2:]
+    hg = nh // g
     q = min(chunk, s)
     assert s % q == 0, f"seq {s} must be divisible by chunk {q}"
     nc = s // q
@@ -85,13 +102,14 @@ def _ssd_chunked(x, dtv, a_log, bm, cm, chunk: int):
     xr = x.reshape(b, nc, q, nh, hd)
     dtr = dtv.reshape(b, nc, q, nh)
     dar = dta.reshape(b, nc, q, nh)
-    br = bm.reshape(b, nc, q, n)
-    cr = cm.reshape(b, nc, q, n)
+    br = bm.reshape(b, nc, q, g, n).permute(0, 1, 3, 2, 4)   # (B,NC,G,Q,N)
+    cr = cm.reshape(b, nc, q, g, n).permute(0, 1, 3, 2, 4)
 
     # ---- within a chunk (the quadratic dual form) ----
     l = torch.exp(_segsum(dar.permute(0, 1, 3, 2)))      # (B,NC,NH,Q,Q)
-    scores = cr @ br.transpose(-1, -2)                    # (B,NC,Q,Q)
-    m = scores[:, :, None] * l                            # (B,NC,NH,Q,Q)
+    scores = cr @ br.transpose(-1, -2)                    # (B,NC,G,Q,Q)
+    m = (scores[:, :, :, None] * l.reshape(b, nc, g, hg, q, q)) \
+        .reshape(b, nc, nh, q, q)                         # (B,NC,NH,Q,Q)
     xdt = (xr * dtr[..., None]).permute(0, 1, 3, 2, 4)    # (B,NC,NH,Q,HD)
     y_intra = (m @ xdt).permute(0, 1, 3, 2, 4)            # (B,NC,Q,NH,HD)
 
@@ -99,8 +117,10 @@ def _ssd_chunked(x, dtv, a_log, bm, cm, chunk: int):
     csum = torch.cumsum(dar, 2)                           # (B,NC,Q,NH)
     decay_to_end = torch.exp(csum[:, :, -1:] - csum)
     xw = xr * (dtr * decay_to_end)[..., None]             # (B,NC,Q,NH,HD)
-    states = (br.transpose(-1, -2) @ xw.reshape(b, nc, q, nh * hd)) \
-        .reshape(b, nc, n, nh, hd).permute(0, 1, 3, 2, 4)  # (B,NC,NH,N,HD)
+    xw = xw.reshape(b, nc, q, g, hg * hd).permute(0, 1, 3, 2, 4)
+    states = (br.transpose(-1, -2) @ xw) \
+        .reshape(b, nc, g, n, hg, hd).permute(0, 1, 2, 4, 3, 5) \
+        .reshape(b, nc, nh, n, hd)                        # (B,NC,NH,N,HD)
 
     # ---- the recurrence between chunks, emitting the previous state ----
     chunk_decay = torch.exp(dar.sum(2))                   # (B,NC,NH)
@@ -112,8 +132,9 @@ def _ssd_chunked(x, dtv, a_log, bm, cm, chunk: int):
     prev_states = torch.stack(prev, 1)                    # (B,NC,NH,N,HD)
 
     # ---- the previous chunks' output ----
-    y_inter = (cr @ prev_states.to(cr.dtype).permute(0, 1, 3, 2, 4)
-               .reshape(b, nc, n, nh * hd)).reshape(b, nc, q, nh, hd) \
+    prev_g = prev_states.to(cr.dtype).reshape(b, nc, g, hg, n, hd) \
+        .permute(0, 1, 2, 4, 3, 5).reshape(b, nc, g, n, hg * hd)
+    y_inter = (cr @ prev_g).permute(0, 1, 3, 2, 4).reshape(b, nc, q, nh, hd) \
         * torch.exp(csum)[..., None]
     return (y_intra + y_inter).reshape(b, s, nh, hd), state
 
@@ -181,7 +202,8 @@ def _mixer(p: dict, cfg: ModelConfig, proj: torch.Tensor,
     cdt = _dt(cfg, "compute")
     di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
-    z, xbc, dt_raw = torch.split(proj, [di, di + 2 * ds, nh], -1)
+    g = cfg.ssm_groups
+    z, xbc, dt_raw = torch.split(proj, [di, di + 2 * g * ds, nh], -1)
 
     conv_w = p["conv_w"].to(cdt)
     conv_b = p["conv_b"].to(cdt)
@@ -207,29 +229,35 @@ def _mixer(p: dict, cfg: ModelConfig, proj: torch.Tensor,
         conv = (torch.einsum("bkc,kc->bc", window, conv_w) + conv_b)[:, None]
         new_conv = window[:, 1:]
     conv = F.silu(conv)
-    x, bm, cm = torch.split(conv, [di, ds, ds], -1)
+    x, bm, cm = torch.split(conv, [di, g * ds, g * ds], -1)
+    bm, cm = bm.reshape(b, s, g, ds), cm.reshape(b, s, g, ds)
     xh = x.reshape(b, s, nh, hd)
     dtv = F.softplus(dt_raw.float() + p["dt_bias"])       # (B,S,NH)
     if valid is not None:
         dtv = dtv * valid[:, :, None].float()
 
     if ssm_cache is None or s > 1:
-        y, new_state = _ssd_chunked(xh.float(), dtv, p["a_log"], bm.float(),
-                                    cm.float(), cfg.ssm_chunk)
+        with trace.span("ssm.scan"):
+            y, new_state = _ssd_chunked(xh.float(), dtv, p["a_log"],
+                                        bm.float(), cm.float(), cfg.ssm_chunk)
     else:
+        # each head's group of B and C: (B, NH, N)
+        bh = bm[:, 0].float().repeat_interleave(nh // g, 1)
+        ch = cm[:, 0].float().repeat_interleave(nh // g, 1)
         da = torch.exp(dtv[:, 0] * -torch.exp(p["a_log"]))   # (B,NH)
-        upd = bm[:, 0].float()[:, None, :, None] \
+        upd = bh[..., None] \
             * (dtv[:, 0, :, None] * xh[:, 0].float())[:, :, None, :]
         new_state = ssm_cache["state"] * da[..., None, None] + upd
-        y = (cm[:, 0].float()[:, None, None, :] @ new_state)  # (B,NH,1,HD)
+        y = (ch[:, :, None, :] @ new_state)               # (B,NH,1,HD)
         y = y.reshape(b, 1, nh, hd)
     y = y + p["d_skip"][:, None] * xh.float()
     y = y.reshape(b, s, di).to(cdt)
-    # the gated RMSNorm (mamba2's norm before the output projection)
-    yz = (y * F.silu(z)).float()
+    # the gated RMSNorm (mamba2's norm before the output projection), over
+    # each of the G slices of d_inner
+    yz = (y * F.silu(z)).float().reshape(b, s, g, di // g)
     var = yz.square().mean(-1, keepdim=True)
-    yn = (yz * torch.rsqrt(var + cfg.norm_eps)
-          * p["norm"]["scale"].float()).to(cdt)
+    yn = (yz * torch.rsqrt(var + cfg.norm_eps)).reshape(b, s, di)
+    yn = (yn * p["norm"]["scale"].float()).to(cdt)
     if ssm_cache is not None:
         ssm_cache["state"].copy_(new_state)
         if new_conv is not None:
@@ -244,6 +272,7 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
                               cfg.ssm_head_dim), dtype=torch.float32,
                              device=device),
         "conv": torch.zeros((batch, cfg.ssm_conv - 1,
-                             cfg.d_inner + 2 * cfg.ssm_state),
+                             cfg.d_inner + 2 * cfg.ssm_groups
+                             * cfg.ssm_state),
                             dtype=_dt(cfg, "compute"), device=device),
     }

@@ -12,6 +12,12 @@ Caches are a list of per-self-block dicts — ``{"kv": {"k", "v", "pos"}}``
 for attention, ``{"ssm": {"state", "conv"}}`` for SSM, both for hybrid —
 updated in place by :func:`decode_step` (and by a prefill into them).
 
+A pattern model (``cfg.layer_pattern``, the port's own) builds each layer
+by its kind: ``{"norm", "attn"}``, ``{"norm", "ssm"}`` or ``{"norm",
+"moe"}``, applied as ``x + mixer(rmsnorm(x))``; its caches hold ``"kv"``
+for attention layers, ``"ssm"`` for SSM layers and nothing for MoE
+layers, two kinds of state side by side in one list.
+
 Without a cache, each block (a VLM: each super-block) runs under the
 reference's remat policy (:func:`remat_wrap`, ``cfg.remat``) when autograd
 records: ``"block"`` / ``"full"`` recompute the whole block in the
@@ -46,8 +52,20 @@ from .layers import _dt
 # ---------------------------------------------------------------------------
 # Block = norm -> mixer (attention | ssm | hybrid) -> norm -> MoE | SwiGLU
 # ---------------------------------------------------------------------------
-def init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
+#: a pattern layer's mixer key by kind
+MIXER = {"attention": "attn", "ssm": "ssm", "moe": "moe"}
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig,
+               kind: str | None = None) -> dict:
+    """A block's parameters; a pattern model's layer of ``kind``: its
+    pre-norm and its one mixer."""
     dt, dev = _dt(cfg, "param"), gen.device
+    if cfg.layer_pattern:
+        init = {"attention": L.init_attention, "ssm": SSM.init_ssm,
+                "moe": MOE.init_moe}[kind]
+        return {"norm": L.init_rmsnorm(cfg.d_model, dt, dev),
+                MIXER[kind]: init(gen, cfg)}
     p: dict = {"norm1": L.init_rmsnorm(cfg.d_model, dt, dev)}
     if cfg.block_type in ("attention", "hybrid"):
         p["attn"] = L.init_attention(gen, cfg)
@@ -68,12 +86,16 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, cache: dict | None = None,
                 extra_mask: torch.Tensor | None = None,
-                valid: torch.Tensor | None = None,
+                valid: torch.Tensor | None = None, kind: str | None = None,
                 ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """-> (x_out, cache, aux loss), the cache updated in place.  ``valid``
     (a right-padded prefill's (B, S) mask) goes to the SSM only, as the
     reference engine's prefill passes it; a hybrid block adds the mean of
-    its two normed mixers."""
+    its two normed mixers.  A pattern model's layer of ``kind``: ``x +
+    mixer(rmsnorm(x))``."""
+    if cfg.layer_pattern:
+        return _apply_layer(p, cfg, kind, x, positions, cache, extra_mask,
+                            valid)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     new_cache: dict | None = None if cache is None else {}
@@ -107,6 +129,26 @@ def apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return x, new_cache, aux
 
 
+def _apply_layer(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                 positions: torch.Tensor, cache: dict | None, extra_mask,
+                 valid) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
+    """One layer of a pattern model: its mixer on the normed stream, added
+    back; its cache (``"kv"``, ``"ssm"`` or none) written in place."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = L.rmsnorm(p["norm"], x, cfg.norm_eps)
+    if kind == "attention":
+        out, _kv = L.apply_attention(p["attn"], cfg, h, positions,
+                                     kv_cache=None if cache is None
+                                     else cache["kv"], extra_mask=extra_mask)
+    elif kind == "ssm":
+        out, _ssc = SSM.apply_ssm(p["ssm"], cfg, h, ssm_cache=None
+                                  if cache is None else cache["ssm"],
+                                  valid=valid)
+    else:
+        out, aux = MOE.apply_moe(p["moe"], cfg, h)
+    return x + out, cache, aux
+
+
 # ---------------------------------------------------------------------------
 # Whole model
 # ---------------------------------------------------------------------------
@@ -129,7 +171,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     keys are not a torch generator)."""
     dt = _dt(cfg, "param")
     n_self = cfg.n_layers - n_cross_blocks(cfg)
-    p = {"blocks": [init_block(gen, cfg) for _ in range(n_self)],
+    kinds = cfg.layer_kinds
+    p = {"blocks": [init_block(gen, cfg, kinds[i]) for i in range(n_self)],
          "embed": L.init_embedding(gen, cfg),
          "final_norm": L.init_rmsnorm(cfg.d_model, dt, gen.device)}
     if not cfg.tie_embeddings:
@@ -205,10 +248,12 @@ def _group(params, cfg: ModelConfig, first: int, n: int, cross: int | None,
     """Self blocks ``first .. first + n − 1`` then, for a VLM, cross block
     ``cross``: -> (x, the summed aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kinds = cfg.layer_kinds
     for i in range(first, first + n):
         x, _c, a = apply_block(params["blocks"][i], cfg, x, positions,
                                cache=None if caches is None else caches[i],
-                               extra_mask=extra_mask, valid=valid)
+                               extra_mask=extra_mask, valid=valid,
+                               kind=kinds[i])
         aux = aux + a
     if cross is not None:
         cp = params["cross_blocks"][cross]
@@ -315,14 +360,15 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int,
     """Per-self-block caches: ``"kv"`` for attention and hybrid blocks (a
     sliding-window config gets ``min(s_max, window)`` slots, a ring
     buffer), ``"ssm"`` for SSM and hybrid blocks (float32 state, conv
-    window in the compute type)."""
+    window in the compute type), none for a pattern model's MoE layers."""
     s_eff = min(s_max, cfg.sliding_window) if cfg.sliding_window else s_max
     caches = []
-    for _ in range(cfg.n_layers - n_cross_blocks(cfg)):
+    kinds = cfg.layer_kinds
+    for i in range(cfg.n_layers - n_cross_blocks(cfg)):
         c = {}
-        if cfg.block_type in ("attention", "hybrid"):
+        if kinds[i] in ("attention", "hybrid"):
             c["kv"] = L.init_kv_cache(cfg, batch, s_eff, dtype, device)
-        if cfg.block_type in ("ssm", "hybrid"):
+        if kinds[i] in ("ssm", "hybrid"):
             c["ssm"] = SSM.init_ssm_cache(cfg, batch, device)
         caches.append(c)
     return caches

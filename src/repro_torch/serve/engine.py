@@ -31,7 +31,12 @@ C-9), and the port does not invent a VLM serving path it lacks.
 The engine keeps host-clock walls: ``prefill_s`` (one per admitted
 request, prefill + first sample) and ``decode_s`` (one per step, decode +
 samples); each ends at the host read of a sampled token, which waits for
-the device.
+the device.  While a profile records, :meth:`ServeEngine.run` is a
+``serve.run`` root with ``serve.prefill`` and ``serve.decode`` spans and
+its counters (:mod:`repro_torch.trace`).  ``keep_logits``: request ids
+whose logits (the prefill's last row and every decode step's) are copied
+to the host as float32, in ``logits[rid]`` — a check's rerun, not the
+served path.
 """
 from __future__ import annotations
 
@@ -41,7 +46,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.simulator import resolve_device
+from ..kernels import moe_grouped
 from ..models import layers as L
 from ..models import transformer as T
 from ..models.config import ModelConfig
@@ -94,18 +101,22 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.caches = T.init_caches(cfg, n_slots, max_len, dtype=cache_dtype,
                                     device=self.device)
+        if cfg.moe and cfg.capacity_factor == 0 \
+                and self.device.type == "cuda":
+            # every tile plan of the grouped expert product built now
+            moe_grouped.warm(self.device, cfg.d_model, cfg.d_expert,
+                             cfg.n_experts, L._dt(cfg, "compute"))
         # built before any prefill: its warm-up is undone, so the caches
         # keep init_caches's values
         self.graph = DecodeGraph(params, cfg, self.caches, n_slots,
                                  device=self.device)
-        self.chunk = cfg.ssm_chunk \
-            if cfg.block_type in ("ssm", "hybrid") else 1
+        self.chunk = cfg.ssm_chunk if cfg.has_ssm else 1
         #: the longest prompt a prefill can write (None: no KV cache, no
         #: limit): the KV cache's slots (a sliding window's ring) rounded
         #: down to the SSM chunk — the reference's prefill writes its whole
         #: padded block at slot 0 and fails past that too (ROADMAP C-10)
         self.max_prompt = None
-        if cfg.block_type != "ssm":
+        if cfg.n_attention_layers:
             slots = min(max_len, cfg.sliding_window or max_len)
             self.max_prompt = slots // self.chunk * self.chunk
         self.slot_req: list[Request | None] = [None] * n_slots
@@ -117,6 +128,9 @@ class ServeEngine:
         self._steps = 0
         self.prefill_s: list[float] = []
         self.decode_s: list[float] = []
+        #: request ids whose logits are kept (None: none), and those kept
+        self.keep_logits: set[int] | None = None
+        self.logits: dict[int, list[torch.Tensor]] = {}
 
     # ------------- request management -------------
     def submit(self, prompt: list[int], *, max_new_tokens: int = 32,
@@ -143,18 +157,26 @@ class ServeEngine:
             req = self.queue.pop(0)
             s = len(req.prompt)
             s_pad = -(-s // self.chunk) * self.chunk
-            tok = torch.zeros((1, s_pad), dtype=torch.int64)
-            tok[0, :s] = torch.tensor(req.prompt)
-            tok = tok.to(self.device)
-            valid = (torch.arange(s_pad) < s)[None].to(self.device)
-            logits, _ = _prefill_fn(self.params, self.cfg, tok, valid,
-                                    self._slot_caches(slot))
-            nxt = self._sample(logits[0], req)
+            with trace.span("serve.prefill"):
+                tok = torch.zeros((1, s_pad), dtype=torch.int64)
+                tok[0, :s] = torch.tensor(req.prompt)
+                tok = tok.to(self.device)
+                valid = (torch.arange(s_pad) < s)[None].to(self.device)
+                logits, _ = _prefill_fn(self.params, self.cfg, tok, valid,
+                                        self._slot_caches(slot))
+                self._keep(req, logits[0])
+                nxt = self._sample(logits[0], req)
+            trace.count("serve.prompt_tokens", s)
             req.out_tokens.append(nxt)
             self.slot_req[slot] = req
             self.slot_pos[slot] = s
             self.slot_next[slot] = nxt
             self.prefill_s.append(time.perf_counter() - t0)
+
+    def _keep(self, req: Request, logits: torch.Tensor) -> None:
+        if self.keep_logits is not None and req.rid in self.keep_logits:
+            self.logits.setdefault(req.rid, []).append(
+                logits.float().cpu())
 
     def _sample(self, logits: torch.Tensor, req: Request) -> int:
         if req.temperature <= 0.0:
@@ -175,13 +197,17 @@ class ServeEngine:
         if not active:
             return
         t0 = time.perf_counter()
-        logits, greedy = self.graph.run(
-            torch.from_numpy(self.slot_next[:, None]),
-            torch.from_numpy(self.slot_pos[:, None]))
+        with trace.span("serve.decode"):
+            logits, greedy = self.graph.run(
+                torch.from_numpy(self.slot_next[:, None]),
+                torch.from_numpy(self.slot_pos[:, None]))
+            greedy = greedy.tolist()            # the step's one host read
         self._steps += 1
-        greedy = greedy.tolist()            # the step's one host read
+        trace.count("serve.steps")
+        trace.count("serve.decode_tokens", len(active))
         for slot in active:
             req = self.slot_req[slot]
+            self._keep(req, logits[slot, 0])
             nxt = greedy[slot] if req.temperature <= 0.0 \
                 else self._sample(logits[slot, 0], req)
             req.out_tokens.append(nxt)
@@ -195,8 +221,22 @@ class ServeEngine:
         self.decode_s.append(time.perf_counter() - t0)
 
     def run(self, max_steps: int = 1000) -> list[Request]:
-        while (self.queue or any(r is not None for r in self.slot_req)) \
-                and max_steps > 0:
-            self.step()
-            max_steps -= 1
+        """Step until every request has finished (or ``max_steps``):
+        -> every request finished so far.  While tracing, a ``serve.run``
+        root whose record also takes the grouped expert product's launch
+        records of the run (one host read of the device ring)."""
+        with trace.root("serve.run"):
+            tracing = trace.on()
+            if tracing:
+                moe_grouped.reset_records(self.device)
+            while (self.queue or any(r is not None for r in self.slot_req)) \
+                    and max_steps > 0:
+                self.step()
+                max_steps -= 1
+            if tracing:
+                recs = moe_grouped.take_records(self.device)
+                trace.count("moe.launches", len(recs))
+                trace.count("moe.experts", sum(r[0] for r in recs))
+                trace.count("moe.rows", sum(r[1] for r in recs))
+                trace.note("moe.launch", recs)
         return self.finished

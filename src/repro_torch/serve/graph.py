@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import flash_attention as FA
+from ..kernels import moe_grouped
 from ..models import transformer as T
 from ..models.config import ModelConfig
 
@@ -72,8 +73,10 @@ class DecodeGraph:
         self.image_embeds = None if image_embeds is None else \
             image_embeds.to(device, copy=True)
         self.graph: torch.cuda.CUDAGraph | None = None
-        #: kernel launches of one replay (host counts taken at capture)
+        #: kernel launches of one replay (host counts taken at capture);
+        #: the grouped expert products' apart (``moe_grouped.launches``)
         self.per_replay: dict[str, int] = {}
+        self._grouped = 0
         before = [t.clone() for t in _tensors(caches)]
         if device.type == "cuda":
             with torch.cuda.device(device):
@@ -98,11 +101,14 @@ class DecodeGraph:
             self._step()
         main.wait_stream(side)
         counted = dict(FA.launches)
+        grouped = moe_grouped.launches
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.logits, self.next_tokens = self._step()
         self.per_replay = {k: FA.launches[k] - n for k, n in counted.items()}
         FA.launches.update(counted)         # the capture launched nothing
+        self._grouped = moe_grouped.launches - grouped
+        moe_grouped.launches = grouped
 
     def run(self, tokens, positions) -> tuple[torch.Tensor, torch.Tensor]:
         """Copy ``tokens`` (B, 1) and ``positions`` (B, 1) (tensors on any
@@ -117,4 +123,5 @@ class DecodeGraph:
             self.graph.replay()
             for k, n in self.per_replay.items():
                 FA.launches[k] += n
+            moe_grouped.launches += self._grouped
         return self.logits, self.next_tokens

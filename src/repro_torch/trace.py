@@ -1,4 +1,5 @@
-"""Spans and counters of the Monte-Carlo host path.
+"""Spans and counters of the Monte-Carlo host path and of the serving
+engine.
 
 Tracing is on exactly while a ``torch.profiler`` profile records
 (``torch.autograd.profiler._is_profiler_enabled``); nothing else turns it
@@ -45,6 +46,26 @@ at their sites), ``scatter_bytes`` (bytes written into the slot buffers by
 row index) and ``h2d_copies`` (copies of host arrays to the bank's
 device, counted at the call site on a CPU device too, where they copy
 nothing).
+
+The spans of one ``ServeEngine.run`` (``serve/engine.py``)::
+
+    serve.run                     the root, once
+      serve.prefill               one admitted request: its prefill and
+                                  first sample (ends at that host read)
+        moe.route, moe.dispatch,  each MoE layer of an eager call
+        moe.experts, moe.combine  (models/moe.py)
+        ssm.scan                  each chunked SSD (models/ssm.py)
+      serve.decode                one decode step, to its host read of the
+                                  greedy tokens
+
+A decode step replayed as a CUDA graph opens no span inside it (on the
+CPU the step runs eagerly and opens the layers' spans too).  Counters:
+``serve.prompt_tokens``, ``serve.decode_tokens`` (tokens the decode steps
+emitted), ``serve.steps``, and, read once per run from the grouped expert
+product's device ring (``kernels/moe_grouped.py``, which graph replays
+write too), ``moe.launches``, ``moe.experts`` and ``moe.rows`` summed, with
+each launch's ``(experts with rows, rows)`` under the record's
+``lists["moe.launch"]`` (:func:`note`).
 """
 from __future__ import annotations
 
@@ -63,6 +84,8 @@ MAX_CALLS = 4096
 _OFF = contextlib.nullcontext()
 #: the open root's counts, or None
 _open: Counter | None = None
+#: the open root's lists (:func:`note`)
+_lists: dict = {}
 _calls: deque = deque(maxlen=MAX_CALLS)
 
 
@@ -86,15 +109,25 @@ class _Root:
     def __enter__(self):
         global _open
         _open = Counter()
+        _lists.clear()
         self._range.__enter__()
         return self
 
     def __exit__(self, *exc):
         global _open
         self._range.__exit__(*exc)
-        _calls.append({"name": self.name, "counts": dict(_open)})
+        rec = {"name": self.name, "counts": dict(_open)}
+        if _lists:
+            rec["lists"] = dict(_lists)
+            _lists.clear()
+        _calls.append(rec)
         _open = None
         return False
+
+
+def on() -> bool:
+    """Tracing is on: a profile records."""
+    return bool(_profiler._is_profiler_enabled)
 
 
 def root(name: str):
@@ -134,6 +167,13 @@ def count(key: str, n: int = 1) -> None:
         _open[key] += n
 
 
+def note(key: str, values: list) -> None:
+    """Keep ``values`` under ``lists[key]`` of the open root's record, if
+    any."""
+    if _open is not None:
+        _lists[key] = list(values)
+
+
 def to_device(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
     """A host array copied to ``device`` (and cast to ``dtype``), counted
     as one ``h2d_copies``."""
@@ -145,7 +185,8 @@ def to_device(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
 
 def calls() -> list[dict]:
     """The records of the roots finished while tracing was on, oldest
-    first: ``{"name": root span, "counts": {counter: value}}``."""
+    first: ``{"name": root span, "counts": {counter: value}}``, and
+    ``"lists"`` where :func:`note` kept some."""
     return list(_calls)
 
 
