@@ -36,7 +36,7 @@ CONFIG = PatternConfig(
     n_kv_heads=2, head_dim=128, d_ff=3712, vocab=131072, rope=False,
     rope_theta=10000.0, layer_pattern=PATTERN,
     moe=True, n_experts=128, n_shared_experts=1, moe_top_k=6, d_expert=1856,
-    capacity_factor=0.0, mlp_act="relu2", router="sigmoid", router_bias=True,
+    capacity_factor=0.0, mlp_act="relu2", router="sigmoid",
     routed_scaling=2.5,
     ssm_state=128, ssm_n_heads=64, ssm_head_dim=64, ssm_groups=8,
     ssm_conv=4, ssm_chunk=128,

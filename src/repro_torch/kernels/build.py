@@ -14,9 +14,9 @@ Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3`` and
 :data:`BUILD_LOGS`), then the source's own (:func:`flags`): ``--fmad=false``
 by default — those kernels reproduce the float32 operation order of the
 numpy reference, so nvcc must not contract a multiply and an add into an
-FMA — and ``--fmad=true`` for ``flash_attention`` and
-``flash_attention_bwd``, whose float32 arithmetic is held to a tolerance,
-not bit for bit.
+FMA — and ``--fmad=true`` for ``flash_attention``, ``flash_attention_bwd``
+and ``moe_grouped``, whose float32 arithmetic is held to a tolerance, not
+bit for bit.
 """
 from __future__ import annotations
 
@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 #: flags of one source beyond NVCC_FLAGS (default: no FMA contraction)
 SOURCE_FLAGS = {"flash_attention": ("--fmad=true",),
-                "flash_attention_bwd": ("--fmad=true",)}
+                "flash_attention_bwd": ("--fmad=true",),
+                "moe_grouped": ("--fmad=true",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: nvcc's output (ptxas resource usage) of each source built in this process

@@ -1,5 +1,5 @@
-"""The grouped expert product of a dropless MoE: the Hopper kernels (Triton)
-and their plain twin.
+"""The grouped expert product of a dropless MoE: the Hopper kernel (CUDA
+C++, ``csrc/moe_grouped.cu``) and its plain twin.
 
 Replaces no TPU kernel: the reference's MoE runs its experts as one batched
 product over fixed-capacity ``(E, C, D)`` buffers, which drops tokens past
@@ -12,49 +12,48 @@ The rows come sorted by expert (``xs`` (R, D), expert ``e`` owning rows
 ``offsets[e] : offsets[e + 1]``), with the ``(E + 1,)`` int32 ``offsets``
 on the device: no size is read on the host, so the product is captured in
 the decode step's CUDA graph.  Each expert computes ``down(relu(up(h))²)``
-(Nemotron-H's relu² experts): ``w_up`` (E, D, F), ``w_down`` (E, F, D), the
-products accumulated in float32, ``relu(·)²`` rounded once to the compute
-type, the output rounded once (bf16; float32 rows take full float32
-products, without TF32).
+(Nemotron-H's relu² experts) with the published layout, K-major: ``w_up``
+(E, F, D), ``w_down`` (E, D, F); the products accumulated in float32,
+``relu(·)²`` rounded once to the compute type, the output rounded once
+(bf16; float32 rows take full float32 products, without TF32).
 
-:func:`grouped_experts_cuda` launches two Triton kernels
-(``triton_kernels/moe_grouped_tl.py``), ``up`` (with the activation) then
-``down``.  Each program takes one tile of ``BM`` rows of
-one expert and ``BN`` output columns: it loads the ``E + 1`` offsets, counts
-each expert's tiles and finds its own by a prefix sum, so the grid is a
-fixed bound (``ceil(R / BM) + min(E, R)`` tiles) and programs past the last
-tile return at once.  What bounds it: at decode, the bytes of the weights of
-each expert with rows (about 20 MB an expert at Nemotron 3 Nano's widths,
-rows a handful); at prefill the products (``4 · R · D · F`` operations), at
-the card's bf16 rate.  Decode takes ``BM = 16`` (the least ``tl.dot``
-takes) and narrow column tiles, so that many programs stream the weights at
-once; prefill takes 64- or 128-row tiles (:data:`PLANS`, built ahead by
-:func:`warm`).  Program ``(0, 0)`` of ``up`` also writes
-one record of the launch — the experts that received rows and the rows — into
-a small device ring (:func:`take_records`), which a graph replay writes
-too; a CPU call appends the same record.
+:func:`grouped_experts_cuda` makes two launches of one kernel, ``up`` (with
+the activation) then ``down``.  A block takes one tile of ``BM`` rows of
+one expert and ``BN`` output columns: it loads the ``E + 1`` offsets,
+scans each expert's tile count across its threads and finds its own, so
+the grid is a fixed bound (``ceil(R / BM) + min(E, R)`` tiles) and blocks
+past the last tile return at once.  bf16 rows run on ``wgmma``, in tiles
+of 128 rows and 256 columns, from a 4-deep ``cp.async`` ring of
+128B-swizzled tiles; float32 rows on the CUDA cores.  What bounds it: at
+decode, the bytes of the weights of each expert with rows (about 20 MB an
+expert at Nemotron 3 Nano's widths, rows a handful); at a long prefill the
+same bytes and the products (``4 · R · D · F`` operations at the card's
+bf16 rate).  Block ``(0, 0)`` of ``up`` also writes
+one record of the launch — the experts that received rows and the rows —
+into a small device ring (:func:`take_records`), which a graph replay
+writes too; a CPU call appends the same record.
 
 :func:`grouped_experts_plain` is the same function as a loop over the
 experts that have rows, in float32 products: what a CPU tensor gets and
-what the kernels are held against on the card.
+what the kernel is held against on the card.
 """
 from __future__ import annotations
 
-from pathlib import Path
+import ctypes
 
 import torch
 
+from .flash_attention import _stream
+
 #: grouped products since the counts were last reset (plain calls not
 #: counted); each is two kernel launches, ``up`` then ``down``
-launches = 0
+launches = {"moe_grouped": 0}
 #: records kept at most in a device's ring (a serving call makes a few
 #: thousand)
 RING = 1 << 15
-#: rows at or below which a call takes the decode tiles
-DECODE_ROWS = 512
 
 _RINGS: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
-_KERNELS: dict = {}
+_LIB = None
 
 
 def _ring(device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -91,11 +90,11 @@ def take_records(device) -> list[tuple[int, int]]:
 
 def _check(xs, offsets, w_up, w_down) -> None:
     if xs.dim() != 2 or w_up.dim() != 3 or w_down.dim() != 3:
-        raise ValueError(f"want xs (R, D), w_up (E, D, F), w_down (E, F, D);"
+        raise ValueError(f"want xs (R, D), w_up (E, F, D), w_down (E, D, F);"
                          f" got {tuple(xs.shape)}, {tuple(w_up.shape)}, "
                          f"{tuple(w_down.shape)}")
-    e, d, f = w_up.shape
-    if xs.shape[1] != d or tuple(w_down.shape) != (e, f, d):
+    e, f, d = w_up.shape
+    if xs.shape[1] != d or tuple(w_down.shape) != (e, d, f):
         raise ValueError(f"xs {tuple(xs.shape)}, w_up {tuple(w_up.shape)} "
                          f"and w_down {tuple(w_down.shape)} do not fit")
     if tuple(offsets.shape) != (e + 1,) or offsets.dtype != torch.int32:
@@ -109,7 +108,7 @@ def _check(xs, offsets, w_up, w_down) -> None:
 def grouped_experts(xs: torch.Tensor, offsets: torch.Tensor,
                     w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
     """-> (R, D) in xs's type: rows ``offsets[e]:offsets[e+1]`` through
-    expert ``e``'s ``down(relu(up(·))²)``.  The kernels on a CUDA tensor,
+    expert ``e``'s ``down(relu(up(·))²)``.  The kernel on a CUDA tensor,
     the plain twin on a CPU one."""
     _check(xs, offsets, w_up, w_down)
     if xs.is_cuda:
@@ -131,102 +130,54 @@ def grouped_experts_plain(xs, offsets, w_up, w_down) -> torch.Tensor:
     out = torch.zeros_like(xs)
     for e, (a, b) in enumerate(zip(off, off[1:])):
         if b > a:
-            h = torch.relu(xs[a:b].float() @ w_up[e].float()).square()
-            out[a:b] = (h.to(xs.dtype).float() @ w_down[e].float()).to(
+            h = torch.relu(xs[a:b].float() @ w_up[e].float().T).square()
+            out[a:b] = (h.to(xs.dtype).float() @ w_down[e].float().T).to(
                 xs.dtype)
     return out
 
 
-def tiles(rows: int, n_experts: int, bm: int) -> int:
-    """The grid's tile bound: ``ceil(rows / bm)`` full tiles plus at most
-    one partial tile for each expert that can have rows."""
-    return -(-rows // bm) + min(n_experts, rows)
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
 
 
-#: tile sizes by the rows a call gives an expert on average: decode (a
-#: handful of rows: narrow column tiles, many programs streaming weights),
-#: short prefills, long prefills (H100 sweep at Nemotron 3 Nano's widths:
-#: 0.46 ms at 16 tokens, 1.73 ms at 4,096 against 2.30 ms with the short
-#: prefills' tiles)
-PLANS = (
-    {"BM": 16, "BN": 64, "BK": 128, "num_warps": 4, "num_stages": 4},
-    {"BM": 64, "BN": 128, "BK": 64, "num_warps": 4, "num_stages": 4},
-    {"BM": 128, "BN": 256, "BK": 64, "num_warps": 8, "num_stages": 3},
-)
-
-
-def plan(rows: int, n_experts: int) -> dict:
-    """Tile sizes of a call of ``rows`` rows over ``n_experts`` experts."""
-    if rows <= DECODE_ROWS:
-        return PLANS[0]
-    return PLANS[1] if rows < 64 * n_experts else PLANS[2]
-
-
-def warm(device, d: int, f: int, n_experts: int,
-         dtype=torch.bfloat16) -> None:
-    """Build every tile plan's kernels at these widths (Triton compiles on
-    first launch): one launch of each on zero rows of a throwaway expert
-    set, so that no later call compiles."""
-    w_up = torch.zeros((n_experts, d, f), dtype=dtype, device=device)
-    w_down = torch.zeros((n_experts, f, d), dtype=dtype, device=device)
-    for rows in (DECODE_ROWS, DECODE_ROWS + 1, 64 * n_experts):
-        xs = torch.zeros((rows, d), dtype=dtype, device=device)
-        off = torch.full((n_experts + 1,), rows, dtype=torch.int32,
-                         device=device)
-        off[0] = 0
-        grouped_experts(xs, off, w_up, w_down)
-    reset_records(device)
-
-
-def _build():
-    """The two Triton kernels (``triton_kernels/moe_grouped_tl.py``),
-    loaded by path on first use: that module imports ``triton``, which the
-    machine without a card lacks."""
-    if not _KERNELS:
-        import importlib.util
-
-        import triton
-        path = Path(__file__).resolve().parent / "triton_kernels" \
-            / "moe_grouped_tl.py"
-        spec = importlib.util.spec_from_file_location(
-            "repro_torch_moe_grouped_tl", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        _KERNELS.update(up=mod.moe_grouped_up_kernel,
-                        down=mod.moe_grouped_down_kernel, cdiv=triton.cdiv,
-                        next_pow2=triton.next_power_of_2)
-    return _KERNELS
+def _lib() -> ctypes.CDLL:
+    """``csrc/moe_grouped.cu``, built on first use."""
+    global _LIB
+    if _LIB is None:
+        from . import build
+        lib = build.load("moe_grouped")
+        lib.moe_grouped.argtypes = [_VP] * 8 + [_INT] * 6 + [_VP]
+        lib.moe_grouped.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
 
 
 def grouped_experts_cuda(xs, offsets, w_up, w_down) -> torch.Tensor:
-    """The two kernels on the current stream; raises on what they do not
-    take.  Allocates the (R, F) activation and the (R, D) output."""
-    global launches
+    """The two launches on the current stream; raises on what the kernel
+    does not take.  Allocates the (R, F) activation and the (R, D) output."""
     for name, t in (("xs", xs), ("offsets", offsets), ("w_up", w_up),
                     ("w_down", w_down)):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous CUDA tensor")
     if xs.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the kernels take bf16 or float32 rows, not "
+        raise ValueError(f"the kernel takes bf16 or float32 rows, not "
                          f"{xs.dtype}")
-    k = _build()
     r, d = xs.shape
-    e, _, f = w_up.shape
-    cfg = plan(r, e)
-    bm, bn, bk = cfg["BM"], cfg["BN"], cfg["BK"]
-    launch = {"num_warps": cfg["num_warps"], "num_stages": cfg["num_stages"],
-              # float32 rows: full float32 products, no TF32
-              "PRECISION": "ieee" if xs.dtype == torch.float32 else "tf32"}
-    n_tiles = tiles(r, e, bm)
-    ring, idx = _ring(xs.device)
-    h = torch.empty((r, f), dtype=xs.dtype, device=xs.device)
+    e, f, _ = w_up.shape
+    if d % 8 or f % 8:
+        raise ValueError(f"the kernel takes widths that are multiples of 8, "
+                         f"not D {d}, F {f}")
     out = torch.empty_like(xs)
-    ep = k["next_pow2"](e)
-    k["up"][(n_tiles, k["cdiv"](f, bn))](
-        xs, w_up, h, offsets, ring, idx, D=d, F=f, E=e, EP=ep, RING=RING,
-        BM=bm, BN=bn, BK=bk, **launch)
-    k["down"][(n_tiles, k["cdiv"](d, bn))](
-        h, w_down, out, offsets, D=d, F=f, E=e, EP=ep, BM=bm, BN=bn, BK=bk,
-        **launch)
-    launches += 1
+    if r == 0:
+        return out
+    h = torch.empty((r, f), dtype=xs.dtype, device=xs.device)
+    ring, idx = _ring(xs.device)
+    dev = xs.device.index if xs.device.index is not None else \
+        torch.cuda.current_device()
+    err = _lib().moe_grouped(
+        xs.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(),
+        out.data_ptr(), offsets.data_ptr(), ring.data_ptr(), idx.data_ptr(),
+        RING, r, d, f, e, int(xs.dtype == torch.bfloat16), _stream(dev))
+    if err:
+        raise RuntimeError(f"moe_grouped launch failed: CUDA error {err}")
+    launches["moe_grouped"] += 1
     return out

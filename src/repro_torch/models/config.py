@@ -11,9 +11,9 @@ each layer one of three single-mixer kinds, one character a layer: ``M`` a
 Mamba-2 mixer, ``E`` a MoE, ``*`` attention.  Such a layer computes ``x +
 mixer(rmsnorm(x))`` and has no second sub-layer; ``block_type`` is then
 unused.  The MoE options it brings: ``mlp_act="relu2"`` experts
-(``down(relu(up(h))²)``, no gate projection), ``router="sigmoid"`` with a
-score-correction bias (``router_bias``: it picks the top k, the weights are
-the plain scores) and ``routed_scaling``, and the dropless dispatch
+(``down(relu(up(h))²)``, no gate projection), ``router="sigmoid"``, which
+always has a score-correction bias (it picks the top k, the weights are
+the plain scores), ``routed_scaling``, and the dropless dispatch
 (``capacity_factor = 0``).  The SSM options: an explicit head count
 (``ssm_n_heads``; ``d_inner = ssm_n_heads · ssm_head_dim``), ``ssm_groups``
 groups of B and C (head ``h`` reads group ``h // (heads / groups)``) and a
@@ -87,7 +87,6 @@ class ModelConfig:
     rope = True                      # False: no positional embedding
     mlp_act = "swiglu"               # swiglu | relu2 (experts, shared too)
     router = "softmax"               # softmax | sigmoid
-    router_bias = False              # sigmoid: score-correction bias
     routed_scaling = 1.0             # the routed sum's factor
     ssm_n_heads = 0                  # 0 -> expand * d_model / head_dim
     ssm_groups = 1                   # groups of B and C (and of the norm)
@@ -160,7 +159,8 @@ class ModelConfig:
             + 2 * d * self.n_kv_heads * hd,
             "ssm": d * (2 * di + gs + nh) + di * d
             + (self.ssm_conv + 1) * (di + gs) + 3 * nh + di,
-            "moe": d * self.n_experts + self.n_experts * self.router_bias
+            "moe": d * self.n_experts
+            + self.n_experts * (self.router == "sigmoid")
             + mats * d * self.d_expert * self.n_experts
             + mats * d * self.d_ff * self.n_shared_experts,
         }
@@ -253,7 +253,6 @@ class PatternConfig(ModelConfig):
     rope: bool = True
     mlp_act: str = "swiglu"
     router: str = "softmax"
-    router_bias: bool = False
     routed_scaling: float = 1.0
     ssm_n_heads: int = 0
     ssm_groups: int = 1

@@ -14,8 +14,8 @@ k (the weights are the plain scores, renormalised, times
 ``routed_scaling``), relu² experts (two matrices, no gate), and every
 (token, expert) pair computed: the pairs sorted stably by expert, the
 per-expert offsets counted on the device, and one grouped product over the
-sorted rows (:func:`repro_torch.kernels.moe_grouped.grouped_experts`: Triton
-kernels on the card, a loop over the experts with rows on the CPU); no host
+sorted rows (:func:`repro_torch.kernels.moe_grouped.grouped_experts`: a CUDA
+kernel on the card, a loop over the experts with rows on the CPU); no host
 read, so the layer is captured in the decode step's CUDA graph.  Every
 expert has its own rows there, so a token's output does not depend on the
 other tokens of the batch.
@@ -26,6 +26,7 @@ parts inside ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -39,29 +40,35 @@ from .layers import (_dt, apply_mlp, batch_placements, dense_init, init_mlp,
                      to_local_as)
 
 
+#: the expert choices of the MoE calls while :func:`recording` is open
+_routes: list | None = None
+
 #: the sigmoid router's score-correction bias: N(0, ROUTER_BIAS_STD²) draws,
 #: small beside the scores' spread, yet enough to change some choices
 ROUTER_BIAS_STD = 0.01
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """A float32 router, (E, in, out) expert weights N(0, 1/in), and the
-    shared experts as one MLP of ``d_ff · n_shared`` (``d_expert ·
-    n_shared`` without a ``d_ff``); relu² experts have no gate.  A sigmoid
-    router with ``router_bias`` gets a float32 ``router_bias`` (E,),
+    """A float32 router, expert weights N(0, 1/in), and the shared experts
+    as one MLP of ``d_ff · n_shared`` (``d_expert · n_shared`` without a
+    ``d_ff``).  SwiGLU experts: (E, in, out) each; relu² experts have no
+    gate and take the published layout, K-major, as the grouped kernel
+    reads it: ``w_up`` (E, F, D), ``w_down`` (E, D, F).  A sigmoid router
+    has a float32 score-correction bias ``router_bias`` (E,),
     N(0, ``ROUTER_BIAS_STD``²)."""
     dt = _dt(cfg, "param")
     e, d, dff = cfg.n_experts, cfg.d_model, cfg.d_expert
 
     def ew(i, o):
-        w = torch.randn((e, i, o), generator=gen, device=gen.device)
+        shape = (e, o, i) if cfg.mlp_act == "relu2" else (e, i, o)
+        w = torch.randn(shape, generator=gen, device=gen.device)
         return (w / math.sqrt(i)).to(dt)
 
     p = {"router": dense_init(gen, d, e, torch.float32)}
     if cfg.mlp_act != "relu2":
         p["w_gate"] = ew(d, dff)
     p.update(w_up=ew(d, dff), w_down=ew(dff, d))
-    if cfg.router == "sigmoid" and cfg.router_bias:
+    if cfg.router == "sigmoid":
         p["router_bias"] = ROUTER_BIAS_STD * torch.randn(
             (e,), generator=gen, device=gen.device)
     if cfg.n_shared_experts:
@@ -110,10 +117,12 @@ def _experts(p: dict, xe: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     """(E, C, D) expert buffers -> (E·C, D) outputs: every expert's
     SwiGLU (relu² where the experts have no gate) as batched products."""
     e, c, d = xe.shape
-    u = torch.bmm(xe, p["w_up"].to(cdt))
-    if "w_gate" not in p:
-        return torch.bmm(torch.relu(u).square(), p["w_down"].to(cdt)) \
+    if "w_gate" not in p:                  # relu²: (E, out, in) weights
+        u = torch.bmm(xe, p["w_up"].to(cdt).transpose(1, 2))
+        return torch.bmm(torch.relu(u).square(),
+                         p["w_down"].to(cdt).transpose(1, 2)) \
             .reshape(e * c, d)
+    u = torch.bmm(xe, p["w_up"].to(cdt))
     g = F.silu(torch.bmm(xe, p["w_gate"].to(cdt)))
     return torch.bmm(g * u, p["w_down"].to(cdt)).reshape(e * c, d)
 
@@ -124,14 +133,14 @@ def route(p: dict, cfg: ModelConfig, xt: torch.Tensor
     expert ids (T, K), aux loss).  Softmax: top k of the probabilities,
     renormalised; aux is Switch's ``E · Σ_e mean_prob_e · top1_share_e``.
     Sigmoid: scores ``s = sigmoid(x·Wr)``, the top k by ``s + b`` (the
-    score-correction bias, where the config has one), the weights ``s`` at
+    score-correction bias), the weights ``s`` at
     those experts over their sum plus 1e-20, times ``routed_scaling``; aux
     0 (the served model has no training loss here)."""
     logits = xt.float() @ p["router"]                      # (T, E)
     k_top = cfg.moe_top_k
     if cfg.router == "sigmoid":
         scores = torch.sigmoid(logits)
-        choice = scores + p["router_bias"] if "router_bias" in p else scores
+        choice = scores + p["router_bias"]
         gate_idx = torch.topk(choice, k_top, -1).indices
         w = scores.gather(-1, gate_idx)
         w = w / (w.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scaling
@@ -148,6 +157,20 @@ def route(p: dict, cfg: ModelConfig, xt: torch.Tensor
     top1 = (gate_idx[:, :1] == torch.arange(e, device=xt.device)).float()
     aux = e * torch.sum(probs.mean(0) * top1.mean(0))
     return gate_vals, gate_idx, aux
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep each MoE call's expert choice — the (T, K) expert ids its
+    router picked — in call order: -> the list they go to.  Under CUDA
+    graph capture they are the graph's own buffers, which every replay
+    rewrites (no copy, no host read)."""
+    global _routes
+    saved, _routes = _routes, []
+    try:
+        yield _routes
+    finally:
+        _routes = saved
 
 
 def _sum_by_expert(contrib: torch.Tensor, gate_idx: torch.Tensor
@@ -212,6 +235,8 @@ def _apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     xt = x.reshape(n_tok, d)
     with trace.span("moe.route"):
         gate_vals, gate_idx, aux = route(p, cfg, xt)
+    if _routes is not None:
+        _routes.append(gate_idx)
     if cfg.capacity_factor > 0:
         out = _capacity(p, cfg, xt, gate_vals, gate_idx, cdt, experts)
     else:

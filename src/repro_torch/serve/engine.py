@@ -35,11 +35,14 @@ the device.  While a profile records, :meth:`ServeEngine.run` is a
 ``serve.run`` root with ``serve.prefill`` and ``serve.decode`` spans and
 its counters (:mod:`repro_torch.trace`).  ``keep_logits``: request ids
 whose logits (the prefill's last row and every decode step's) are copied
-to the host as float32, in ``logits[rid]`` — a check's rerun, not the
-served path.
+to the host as float32, in ``logits[rid]``, and the expert choice of every
+MoE layer at each position they fed (the prompt's, then each decode
+step's), in ``routes[rid]`` as ``(MoE layers, positions, K)`` pieces — a
+check's rerun, not the served path.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
@@ -50,6 +53,7 @@ from .. import trace
 from ..core.simulator import resolve_device
 from ..kernels import moe_grouped
 from ..models import layers as L
+from ..models import moe as MOE
 from ..models import transformer as T
 from ..models.config import ModelConfig
 from .graph import DecodeGraph
@@ -101,11 +105,6 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.caches = T.init_caches(cfg, n_slots, max_len, dtype=cache_dtype,
                                     device=self.device)
-        if cfg.moe and cfg.capacity_factor == 0 \
-                and self.device.type == "cuda":
-            # every tile plan of the grouped expert product built now
-            moe_grouped.warm(self.device, cfg.d_model, cfg.d_expert,
-                             cfg.n_experts, L._dt(cfg, "compute"))
         # built before any prefill: its warm-up is undone, so the caches
         # keep init_caches's values
         self.graph = DecodeGraph(params, cfg, self.caches, n_slots,
@@ -131,6 +130,7 @@ class ServeEngine:
         #: request ids whose logits are kept (None: none), and those kept
         self.keep_logits: set[int] | None = None
         self.logits: dict[int, list[torch.Tensor]] = {}
+        self.routes: dict[int, list[torch.Tensor]] = {}
 
     # ------------- request management -------------
     def submit(self, prompt: list[int], *, max_new_tokens: int = 32,
@@ -162,9 +162,13 @@ class ServeEngine:
                 tok[0, :s] = torch.tensor(req.prompt)
                 tok = tok.to(self.device)
                 valid = (torch.arange(s_pad) < s)[None].to(self.device)
-                logits, _ = _prefill_fn(self.params, self.cfg, tok, valid,
-                                        self._slot_caches(slot))
-                self._keep(req, logits[0])
+                kept = self._kept(req)
+                with MOE.recording() if kept else contextlib.nullcontext() \
+                        as routes:
+                    logits, _ = _prefill_fn(self.params, self.cfg, tok,
+                                            valid, self._slot_caches(slot))
+                if kept:
+                    self._keep(req, logits[0], [r[:s] for r in routes])
                 nxt = self._sample(logits[0], req)
             trace.count("serve.prompt_tokens", s)
             req.out_tokens.append(nxt)
@@ -173,10 +177,17 @@ class ServeEngine:
             self.slot_next[slot] = nxt
             self.prefill_s.append(time.perf_counter() - t0)
 
-    def _keep(self, req: Request, logits: torch.Tensor) -> None:
-        if self.keep_logits is not None and req.rid in self.keep_logits:
-            self.logits.setdefault(req.rid, []).append(
-                logits.float().cpu())
+    def _kept(self, req: Request) -> bool:
+        return self.keep_logits is not None and req.rid in self.keep_logits
+
+    def _keep(self, req: Request, logits: torch.Tensor,
+              routes: list[torch.Tensor]) -> None:
+        """Copy a kept request's logits row and its (positions, K) expert
+        choices of each MoE layer to the host."""
+        self.logits.setdefault(req.rid, []).append(logits.float().cpu())
+        if routes:
+            self.routes.setdefault(req.rid, []).append(
+                torch.stack(routes).cpu())
 
     def _sample(self, logits: torch.Tensor, req: Request) -> int:
         if req.temperature <= 0.0:
@@ -207,7 +218,9 @@ class ServeEngine:
         trace.count("serve.decode_tokens", len(active))
         for slot in active:
             req = self.slot_req[slot]
-            self._keep(req, logits[slot, 0])
+            if self._kept(req):
+                self._keep(req, logits[slot, 0],
+                           [r[slot:slot + 1] for r in self.graph.routes])
             nxt = greedy[slot] if req.temperature <= 0.0 \
                 else self._sample(logits[slot, 0], req)
             req.out_tokens.append(nxt)

@@ -28,9 +28,12 @@ On a CUDA device it is built in three steps:
 Then :meth:`DecodeGraph.run` copies its inputs into the static buffers and
 replays the graph: one launch from the host for the whole step.  A replay
 runs no Python, so the host-side launch counts of
-:mod:`repro_torch.kernels.flash_attention` are recorded at capture and
-added per replay.  A failed capture or replay raises; nothing runs the
-eager step in its place.
+:mod:`repro_torch.kernels.flash_attention` and
+:mod:`repro_torch.kernels.moe_grouped` are recorded at capture and added
+per replay.  The MoE layers' expert choices of the captured call are kept
+(:func:`repro_torch.models.moe.recording`): ``routes`` holds the last
+step's, rewritten by every replay.  A failed capture or replay raises;
+nothing runs the eager step in its place.
 
 On the CPU (``device="cpu"``, the tests) the same object does the warm-up
 and the restore, then runs the same call on the same buffers eagerly.
@@ -42,6 +45,7 @@ import torch
 
 from ..kernels import flash_attention as FA
 from ..kernels import moe_grouped
+from ..models import moe as MOE
 from ..models import transformer as T
 from ..models.config import ModelConfig
 
@@ -73,16 +77,19 @@ class DecodeGraph:
         self.image_embeds = None if image_embeds is None else \
             image_embeds.to(device, copy=True)
         self.graph: torch.cuda.CUDAGraph | None = None
-        #: kernel launches of one replay (host counts taken at capture);
-        #: the grouped expert products' apart (``moe_grouped.launches``)
+        #: kernel launches of one replay (host counts taken at capture):
+        #: the attention kernels', then the grouped expert products'
         self.per_replay: dict[str, int] = {}
-        self._grouped = 0
+        self.grouped_per_replay = 0
+        #: the last step's expert choice of each MoE layer, (B, K) each
+        #: (on a CUDA device the graph's own buffers)
+        self.routes: list[torch.Tensor] = []
         before = [t.clone() for t in _tensors(caches)]
         if device.type == "cuda":
             with torch.cuda.device(device):
                 self._capture()
         else:
-            self.logits, self.next_tokens = self._step()      # warm-up
+            self._eager()                                      # warm-up
         for t, old in zip(_tensors(caches), before, strict=True):
             t.copy_(old)
 
@@ -93,6 +100,11 @@ class DecodeGraph:
                                       image_embeds=self.image_embeds)
             return logits, torch.argmax(logits[:, 0], -1)
 
+    def _eager(self) -> None:
+        with MOE.recording() as routes:
+            self.logits, self.next_tokens = self._step()
+        self.routes = routes
+
     def _capture(self) -> None:
         main = torch.cuda.current_stream()
         side = torch.cuda.Stream()
@@ -101,14 +113,16 @@ class DecodeGraph:
             self._step()
         main.wait_stream(side)
         counted = dict(FA.launches)
-        grouped = moe_grouped.launches
+        grouped = moe_grouped.launches["moe_grouped"]
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph), MOE.recording() as routes:
             self.logits, self.next_tokens = self._step()
+        self.routes = routes
         self.per_replay = {k: FA.launches[k] - n for k, n in counted.items()}
         FA.launches.update(counted)         # the capture launched nothing
-        self._grouped = moe_grouped.launches - grouped
-        moe_grouped.launches = grouped
+        self.grouped_per_replay = moe_grouped.launches["moe_grouped"] \
+            - grouped
+        moe_grouped.launches["moe_grouped"] = grouped
 
     def run(self, tokens, positions) -> tuple[torch.Tensor, torch.Tensor]:
         """Copy ``tokens`` (B, 1) and ``positions`` (B, 1) (tensors on any
@@ -118,10 +132,10 @@ class DecodeGraph:
         self.tokens.copy_(tokens)
         self.positions.copy_(positions)
         if self.graph is None:
-            self.logits, self.next_tokens = self._step()
+            self._eager()
         else:
             self.graph.replay()
             for k, n in self.per_replay.items():
                 FA.launches[k] += n
-            moe_grouped.launches += self._grouped
+            moe_grouped.launches["moe_grouped"] += self.grouped_per_replay
         return self.logits, self.next_tokens

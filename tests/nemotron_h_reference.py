@@ -38,7 +38,7 @@ with the mixer ``attn`` (``wq`` (D, H·hd), ``wk``, ``wv`` (D, KV·hd), ``wo``
 (H·hd, D)), ``ssm`` (``w_in`` (D, 2·di + 2·G·N + heads), ``conv_w`` (kw,
 C), ``conv_b`` (C,), ``a_log``, ``dt_bias``, ``d_skip`` (heads,),
 ``norm.scale`` (di,), ``w_out`` (di, D)) or ``moe`` (``router`` (D, E),
-``router_bias`` (E,), ``w_up`` (E, D, F), ``w_down`` (E, F, D),
+``router_bias`` (E,), ``w_up`` (E, F, D), ``w_down`` (E, D, F),
 ``shared.w_up`` (D, Fs), ``shared.w_down`` (Fs, D)).
 """
 from __future__ import annotations
@@ -132,7 +132,8 @@ def moe(p: dict, cfg: dict, h: torch.Tensor) -> torch.Tensor:
     for t in range(h.shape[0]):
         for j in range(idx.shape[1]):
             e = int(idx[t, j])
-            out[t] += w[t, j] * relu2(h[t], p["w_up"][e], p["w_down"][e])
+            out[t] += w[t, j] * relu2(h[t], p["w_up"][e].T,
+                                      p["w_down"][e].T)
     return out + relu2(h, p["shared"]["w_up"], p["shared"]["w_down"])
 
 

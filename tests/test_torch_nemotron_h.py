@@ -121,6 +121,36 @@ def test_engine_prefill_then_cached_decode_match_the_full_forward():
         assert r.out_tokens == want.argmax(-1).tolist()
 
 
+def test_the_engine_keeps_the_expert_choice_of_every_fed_position():
+    """A kept request's routes: per MoE layer, the k experts of each prompt
+    position (the prefill) then of each fed token (the decode steps, from
+    the graph's route buffers), the same as a full forward's over prompt
+    plus emitted tokens (recorded by ``moe.recording``; right-padded to
+    the SSD chunk, which the causal positions before it do not see); a
+    request not kept leaves none."""
+    cfg = small()
+    p = params(cfg, seed=5)
+    eng = ServeEngine(cfg, p, n_slots=2, max_len=64, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    for n in (17, 26):
+        eng.submit(torch.randint(0, cfg.vocab, (n,), generator=gen).tolist(),
+                   max_new_tokens=4)
+    eng.keep_logits = {2}
+    done = {r.rid: r for r in eng.run()}
+    assert set(eng.routes) == {2}
+    got = torch.cat(eng.routes[2], 1)
+    r = done[2]
+    seq = r.prompt + r.out_tokens[:-1]
+    n_moe = cfg.layer_pattern.count("E")
+    assert got.shape == (n_moe, len(seq), cfg.moe_top_k)
+    pad = -len(seq) % cfg.ssm_chunk          # the SSD takes whole chunks
+    with MOE.recording() as routes:
+        T.forward(p, cfg, {"tokens": torch.tensor([seq + [0] * pad])})
+    assert len(routes) == n_moe
+    want = torch.stack(routes)[:, :len(seq)]
+    assert torch.equal(got.sort(-1).values, want.sort(-1).values)
+
+
 def _moe_input(cfg, n=24, seed=4):
     return torch.randn(1, n, cfg.d_model,
                        generator=torch.Generator().manual_seed(seed))
@@ -232,15 +262,15 @@ def test_the_grouped_twin_is_a_loop_over_the_experts(dtype, tol):
     2^-8, apart; another expert's row is off by its whole size)."""
     e, d, f = 6, 32, 24
     g = torch.Generator().manual_seed(11)
-    w_up = (torch.randn(e, d, f, generator=g) / math.sqrt(d)).to(dtype)
-    w_down = (torch.randn(e, f, d, generator=g) / math.sqrt(f)).to(dtype)
+    w_up = (torch.randn(e, f, d, generator=g) / math.sqrt(d)).to(dtype)
+    w_down = (torch.randn(e, d, f, generator=g) / math.sqrt(f)).to(dtype)
     xs, off = _sorted_rows([0, 5, 0, 1, 9, 0], d, 12)
     xs = xs.to(dtype)
     got = MG.grouped_experts(xs, off, w_up, w_down)
     for i in range(xs.shape[0]):
         ex = int((off[1:] <= i).sum())
-        h = torch.relu(xs[i].float() @ w_up[ex].float()).square().to(dtype)
-        want = (h.float() @ w_down[ex].float()).to(dtype)
+        h = torch.relu(w_up[ex].float() @ xs[i].float()).square().to(dtype)
+        want = (w_down[ex].float() @ h.float()).to(dtype)
         assert rel(got[i].float(), want.float()) <= tol, i
     with pytest.raises(ValueError):
         MG.grouped_experts(xs, off.long(), w_up, w_down)
@@ -248,7 +278,7 @@ def test_the_grouped_twin_is_a_loop_over_the_experts(dtype, tol):
 
 def test_the_grouped_kernel_records_each_launch():
     e, d, f = 5, 16, 8
-    w_up, w_down = torch.ones(e, d, f), torch.ones(e, f, d)
+    w_up, w_down = torch.ones(e, f, d), torch.ones(e, d, f)
     MG.reset_records("cpu")
     for counts in ([3, 0, 0, 2, 1], [0, 0, 4, 0, 0]):
         xs, off = _sorted_rows(counts, d, 13)
@@ -260,16 +290,16 @@ def test_the_grouped_kernel_records_each_launch():
 @pytest.mark.cuda
 def test_the_grouped_kernel_matches_its_twin_on_card():
     """Nemotron 3 Nano's expert widths; decode (16 tokens) and prefill
-    (1,024 tokens) tiles; a skewed routing; float32 rows.  bf16: the kernel
-    and the twin both sum float32 products of the same bf16 values and
-    round twice; a few bf16 ulps of the largest output."""
+    (1,024 tokens) tiles; a skewed routing; float32 rows.  bf16: the kernel and the twin both sum float32 products
+    of the same bf16 values and round twice; a few bf16 ulps of the
+    largest output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     e, d, f, k = 128, 2688, 1856, 6
     g = torch.Generator(device="cuda").manual_seed(14)
-    w_up = (torch.randn(e, d, f, device="cuda", generator=g)
+    w_up = (torch.randn(e, f, d, device="cuda", generator=g)
             / math.sqrt(d)).bfloat16()
-    w_down = (torch.randn(e, f, d, device="cuda", generator=g)
+    w_down = (torch.randn(e, d, f, device="cuda", generator=g)
               / math.sqrt(f)).bfloat16()
     for n, skew in ((16, 0.0), (1024, 0.0), (64, 10.0)):
         logits = torch.randn(n, e, device="cuda", generator=g)
@@ -283,9 +313,9 @@ def test_the_grouped_kernel_matches_its_twin_on_card():
         want = MG.grouped_experts_plain(xs, off, w_up, w_down).float()
         assert float((got - want).abs().max() / want.abs().max()) <= 2e-2
     xs, off = _sorted_rows([10, 0, 50, 36], 256, 15)
-    wu = torch.randn(4, 256, 128,
+    wu = torch.randn(4, 128, 256,
                      generator=torch.Generator().manual_seed(16)) / 16
-    wd = torch.randn(4, 128, 256,
+    wd = torch.randn(4, 256, 128,
                      generator=torch.Generator().manual_seed(17)) / 11
     got = MG.grouped_experts(xs.cuda(), off.cuda(), wu.cuda(), wd.cuda())
     want = MG.grouped_experts_plain(xs, off, wu, wd)
