@@ -66,7 +66,7 @@ Phases:
     kernels); then 9 requests (prompts of
     256–2048 tokens, 32 new tokens each, 8 greedy + 1 at temperature 1)
     through ``ServeEngine`` on qwen3-4b at full width — one kernel launch
-    per layer per prefill and per decode step, the decode steps replays
+    per layer per prefill forward and per decode step, the decode steps replays
     of the engine's CUDA graph (their launches counted from the capture)
     — the engine's prefill logits against ``forward``, greedy agreement
     with a teacher-forced ``forward``, one merge per layer per decode
@@ -128,12 +128,15 @@ Phases:
     musicgen-medium (the audio decoder, vocabulary 2048) uncut in bf16
     behind ``ServeEngine`` (4 slots x 4096, the float32 cache; hymba's
     ring 2048 slots; decode graphed): 6 requests of 16 new tokens (one at
-    temperature 1), ``n_layers`` attention launches per prefill and decode
-    step (none for mamba2), the prefill logits against ``forward``, the
-    greedy agreement with a teacher-forced ``forward``, walls, tok/s,
-    decode ms per step (qwen2-moe's beside its bytes floor) and peak
-    bytes, the graph against the eager loop as for qwen3-4b; each family
-    cut to 2 layers in float32, card against CPU (≤ 1e-4);
+    temperature 1), ``n_layers`` attention launches per prefill forward
+    and decode step (none for mamba2), the prefill logits against
+    ``forward``, the greedy agreement with a teacher-forced ``forward``,
+    walls, tok/s, decode ms per step (qwen2-moe's beside its bytes floor)
+    and peak bytes, the graph against the eager loop as for qwen3-4b;
+    each family cut to 2 layers in float32, card against CPU (≤ 1e-4);
+    Nemotron 3 Nano's batched prefill of one admission wave against one
+    request a forward (``[batched]``: prefill logits, the first 16
+    tokens; at bf16 printed, cut to 6 layers in float32 held);
     llama-3.2-vision-90b cut to 10 layers (every width kept): ``forward``
     with 1024 image embeddings over a 512-token prompt, then
     ``decode_step`` with them — the prompt eagerly, then the steps as
@@ -231,6 +234,10 @@ ARCH_SERVE, ARCH_REQUESTS, ARCH_NEW = (
     "nemotron-3-nano-30b-a3b"), 6, 16
 #: decode steps of the graph-against-eager check of each served model
 GRAPH_STEPS = 16
+#: float32 prefill logits of a batched forward against one request a
+#: forward, relative to the largest logit (products of other row counts
+#: sum in other orders)
+BATCHED_F32_REL = 1e-4
 #: hymba-1.5b's sliding window: its KV ring's slots
 HYMBA_WINDOW = 2048
 #: the attention kernel's shapes of those families (check_flash_attention)
@@ -1775,7 +1782,7 @@ def _ptxas_summary(log: str) -> list[str]:
 def serve_path(counts: Counts, card: str) -> tuple[dict, dict]:
     """qwen3-4b at full width behind ``ServeEngine`` (4 slots x 4096, the
     float32 cache): 9 requests, 32 new tokens each, one kernel launch per
-    layer per prefill and per decode step (each step one replay of the
+    layer per prefill forward and per decode step (each step one replay of the
     engine's graph); then the engine's prefill logits against ``forward``,
     the greedy agreement with a teacher-forced ``forward`` and the graph
     against the eager loop (:func:`_graph_vs_eager`).  -> (numbers, the
@@ -1808,7 +1815,7 @@ def serve_path(counts: Counts, card: str) -> tuple[dict, dict]:
     done = eng.run()
     c = counts.read("serve_path")
     peak = torch.cuda.max_memory_allocated()
-    n_pre, n_dec = len(eng.prefill_s), eng._steps
+    n_pre, n_dec = len(eng.prefill_groups), eng._steps
     assert c["flash_attention"] == cfg.n_layers * (n_pre + n_dec), \
         (c, n_pre, n_dec)
     # decode steps (4 slots, one query each) take the split path, one merge
@@ -1825,6 +1832,7 @@ def serve_path(counts: Counts, card: str) -> tuple[dict, dict]:
     out = {"arch": SERVE_ARCH, "params": n_params,
            "param_count_formula": cfg.param_count(),
            "prompt_lens": [int(n) for n in lens], "prefills": n_pre,
+           "prefill_groups": eng.prefill_groups,
            "decode_steps": n_dec, "flash_attention_launches":
            c["flash_attention"], "flash_attention_combine_launches":
            c["flash_attention_combine"], "wall_s": wall,
@@ -1866,7 +1874,7 @@ def serve_path(counts: Counts, card: str) -> tuple[dict, dict]:
         - walls["engine_with_graph_s"] - wall
     out["walls"] = walls
     print(f"[serve] {SERVE_ARCH} full width ({n_params} parameters, bf16) on "
-          f"{card}: {n_pre} prefills + {n_dec} decode steps, "
+          f"{card}: {n_pre} prefill forwards + {n_dec} decode steps, "
           f"{c['flash_attention']} flash_attention launches, wall {wall} s, "
           f"{out['tokens_per_s']} tok/s", flush=True)
     print(f"[serve] prefill ms per request {out['prefill_ms']} (prompt "
@@ -1928,6 +1936,71 @@ def _graph_vs_eager(eng, prompts) -> dict:
             "eager_ms_median": e[len(e) // 2], "eager_ms_range": [e[0], e[-1]],
             "replay_ms": replay_ms(eng.graph.graph), "clocks": clocks(),
             "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _batched_vs_single(eng, prompts, tag: str) -> dict:
+    """The engine's batched prefill against one request a forward on the
+    card: the first ``SERVE_SLOTS`` prompts (one admission wave) served
+    twice by the same engine, greedy, ``GRAPH_STEPS`` tokens each, every
+    request's logits kept — first in batched forwards (the engine's
+    ``prefill_tokens``), then one request a forward (0).  Printed: the
+    forwards of each, the prefill logits' largest difference (absolute,
+    and relative to the one-a-forward run's largest logit), and the
+    requests whose tokens are equal."""
+    runs, cap = [], eng.prefill_tokens
+    for tokens in (cap, 0):
+        eng.prefill_tokens = tokens
+        eng.finished, eng.logits, eng.routes = [], {}, {}
+        first = len(eng.prefill_groups)
+        rids = [eng.submit(p, max_new_tokens=GRAPH_STEPS)
+                for p in prompts[:SERVE_SLOTS]]
+        eng.keep_logits = set(rids)
+        done = {r.rid: r for r in eng.run()}
+        eng.keep_logits = None
+        runs.append(([done[r].out_tokens for r in rids],
+                     [eng.logits[r][0] for r in rids],
+                     len(eng.prefill_groups) - first))
+    eng.prefill_tokens = cap
+    eng.finished, eng.logits, eng.routes = [], {}, {}
+    (tb, lb, nb), (ts, ls, ns) = runs
+    diff = max(float((b - s).abs().max()) for b, s in zip(lb, ls, strict=True))
+    rel = max(float((b - s).abs().max() / s.abs().max())
+              for b, s in zip(lb, ls, strict=True))
+    same = sum(b == s for b, s in zip(tb, ts, strict=True))
+    print(f"[batched] {tag}: {len(tb)} prompts "
+          f"{[len(p) for p in prompts[:SERVE_SLOTS]]} in {nb} prefill "
+          f"forwards against {ns}; prefill logits' largest difference {diff}"
+          f" ({rel} of the largest logit); first {GRAPH_STEPS} tokens equal "
+          f"on {same} of {len(tb)} requests", flush=True)
+    assert nb < ns == len(tb), (nb, ns)
+    return {"forwards": [nb, ns], "max_abs_logit_diff": diff,
+            "rel_logit_diff": rel, "tokens_equal_requests": same,
+            "requests": len(tb)}
+
+
+def _batched_f32(cfg, params, prompts, arch: str) -> dict:
+    """:func:`_batched_vs_single` on the served weights cut as
+    :func:`_f32_parity` cuts them (up to the first attention layer),
+    float32 with TF32 off, behind an engine of ``SERVE_SLOTS`` x
+    ``SERVE_MAX_LEN``: there rounding alone tells the two apart, so the
+    tokens are held equal and the prefill logits within
+    ``BATCHED_F32_REL`` of the largest.  (At bf16 the whole model's random
+    weights turn the rounding of other row counts into routing flips that
+    compound with depth: printed, not held.)"""
+    from repro_torch.serve.engine import ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = cfg.layer_pattern.index("*") + 1
+    cut = cfg.replace(n_layers=n, layer_pattern=cfg.layer_pattern[:n],
+                      param_dtype="float32", compute_dtype="float32")
+    eng = ServeEngine(cut, _cut(params, cut, "cuda"), n_slots=SERVE_SLOTS,
+                      max_len=SERVE_MAX_LEN)
+    r = _batched_vs_single(eng, prompts, f"{arch} float32, {n} layers")
+    del eng
+    torch.cuda.empty_cache()
+    assert r["tokens_equal_requests"] == r["requests"], r
+    assert r["rel_logit_diff"] <= BATCHED_F32_REL, r
+    return r
 
 
 def _print_graph(arch: str, r: dict, walls: dict) -> None:
@@ -2006,9 +2079,9 @@ def _serve_arch(counts: Counts, card: str, arch: str) -> tuple[dict, dict]:
     """One family at full width behind ``ServeEngine`` (4 slots x 4096,
     the float32 cache; hymba's window caps its ring at 2048 slots):
     ``ARCH_REQUESTS`` requests of ``ARCH_NEW`` tokens, the last at
-    temperature 1; ``n_layers`` attention launches per prefill and per
-    decode step where the model has attention (none for mamba2), a merge
-    per layer per split decode step; the engine's prefill logits against
+    temperature 1; ``n_layers`` attention launches per prefill forward
+    and per decode step where the model has attention (none for mamba2), a
+    merge per layer per split decode step; the engine's prefill logits against
     ``forward``'s; the greedy agreement with a teacher-forced ``forward``
     (held for hymba and mamba2; printed only for the MoE, whose capacity
     depends on the token count); the graph against the eager loop
@@ -2044,7 +2117,7 @@ def _serve_arch(counts: Counts, card: str, arch: str) -> tuple[dict, dict]:
     done = eng.run()
     c = counts.read(f"serve_{arch}")
     peak = torch.cuda.max_memory_allocated()
-    n_pre, n_dec = len(eng.prefill_s), eng._steps
+    n_pre, n_dec = len(eng.prefill_groups), eng._steps
     attn = cfg.n_attention_layers
     merges = attn * n_dec * (_split_calls(
         FA, SERVE_SLOTS, cfg.n_heads, cfg.n_kv_heads,
@@ -2064,6 +2137,7 @@ def _serve_arch(counts: Counts, card: str, arch: str) -> tuple[dict, dict]:
     dec = sorted(eng.decode_s)
     out = {"arch": arch, "params": n_params, "init_params_s": init_s,
            "prompt_lens": [int(n) for n in lens], "prefills": n_pre,
+           "prefill_groups": eng.prefill_groups,
            "decode_steps": n_dec, "flash_attention_launches":
            c["flash_attention"], "flash_attention_combine_launches":
            c["flash_attention_combine"], "wall_s": wall,
@@ -2112,6 +2186,8 @@ def _serve_arch(counts: Counts, card: str, arch: str) -> tuple[dict, dict]:
         total += len(r.out_tokens)
         del logits
     out["greedy_agreement"] = agree / total
+    if cfg.layer_pattern:
+        out["batched_vs_single"] = _batched_vs_single(eng, prompts, arch)
     out["graph_vs_eager"] = _graph_vs_eager(eng, prompts)
     out["engine_with_graph_s"] = walls["engine_with_graph_s"]
     if cfg.moe and cfg.capacity_factor > 0:
@@ -2120,10 +2196,14 @@ def _serve_arch(counts: Counts, card: str, arch: str) -> tuple[dict, dict]:
         out["no_drop"] = _moe_no_drop(cfg, params, prompts)
     elif cfg.moe:
         del eng                 # dropless: printed, as the other MoE's
+        torch.cuda.empty_cache()
+        if cfg.layer_pattern:
+            out["batched_vs_single_f32"] = _batched_f32(cfg, params, prompts,
+                                                        arch)
     else:
         assert agree / total >= 0.5, (agree, total)
     print(f"[serve] {arch} full width ({n_params} parameters, bf16) on "
-          f"{card}: {n_pre} prefills + {n_dec} decode steps, "
+          f"{card}: {n_pre} prefill forwards + {n_dec} decode steps, "
           f"{c['flash_attention']} flash_attention launches "
           f"({c['flash_attention_combine']} merges), wall {wall} s, "
           f"{out['tokens_per_s']} tok/s over the wall (prefills included); "

@@ -310,8 +310,12 @@ def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     positions sliced from a longer row are copied to aligned rows for the
     kernel (:func:`_aligned`).  Decode (S == 1)
     writes the ring buffer at ``position % S_max``, a prefill into the
-    cache (S > 1) writes its block at 0; the reference's cached path takes
-    no ``extra_mask``."""
+    cache (S > 1, or a cache with ``"rows"``) writes its block at 0 and
+    attends over that block: the rest of the row holds nothing it may see
+    (keys of an earlier request sit at their own positions, past the
+    block's, or hold the sentinel).  ``"rows"`` (B,) in the cache: the
+    prefill writes those batch rows of a larger cache.  The reference's
+    cached path takes no ``extra_mask``."""
     b, s, _d = x.shape
     hd = cfg.hd
     cdt = _dt(cfg, "compute")
@@ -343,18 +347,23 @@ def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
         out = out.reshape(b, s, cfg.n_heads * hd)
         return out @ p["wo"].to(cdt), kv_cache
     k, v, kv_pos = kv_cache["k"], kv_cache["v"], kv_cache["pos"]
-    if s == 1:
+    rows = kv_cache.get("rows")
+    if s == 1 and rows is None:
         idx = positions[:, 0].long() % k.shape[1]
         bar = torch.arange(b, device=x.device)
         k[bar, idx] = xk[:, 0].to(k.dtype)
         v[bar, idx] = xv[:, 0].to(v.dtype)
         kv_pos[bar, idx] = positions[:, 0]
+        k_pos = _aligned(kv_pos)
     else:
-        k[:, :s] = xk
-        v[:, :s] = xv
-        kv_pos[:, :s] = positions
+        rows = slice(None) if rows is None else rows
+        k_new, v_new = xk.to(k.dtype), xv.to(v.dtype)
+        k[rows, :s] = k_new
+        v[rows, :s] = v_new
+        kv_pos[rows, :s] = positions
+        k, v, k_pos = k_new, v_new, positions
     out, _lse = ops.flash_attention(
-        xq, k, v, positions, _aligned(kv_pos), window=cfg.sliding_window,
+        xq, k, v, positions, k_pos, window=cfg.sliding_window,
         softcap=cfg.attn_logit_softcap)
     out = out.reshape(b, s, cfg.n_heads * hd)
     return out @ p["wo"].to(cdt), kv_cache

@@ -146,13 +146,14 @@ def apply_ssm(p: dict, cfg: ModelConfig, u: torch.Tensor, *,
     """u: (B, S, D) -> (out, cache).
 
     Prefill and training run the chunked SSD; decode (``ssm_cache`` given,
-    S == 1) the O(1) recurrent step.  ``valid``: an optional (B, S) mask of
-    a right-padded prefill — padded steps neither decay nor write the state
-    (dt forced to 0) and the conv window kept is the last ``kw − 1`` valid
-    inputs.  The cache, ``{"state": (B, NH, N, HD) float32, "conv": (B,
-    kw − 1, conv_dim)}``, is **updated in place** and returned (a prefill
-    shorter than ``kw − 1`` keeps the old conv window, as the
-    reference)."""
+    S == 1, no ``"rows"``) the O(1) recurrent step.  ``valid``: an
+    optional (B, S) mask of a right-padded prefill — padded steps neither
+    decay nor write the state (dt forced to 0) and the conv window kept is
+    the last ``kw − 1`` valid inputs.  The cache, ``{"state": (B, NH, N,
+    HD) float32, "conv": (B, kw − 1, conv_dim)}``, is **updated in place**
+    and returned (a prefill shorter than ``kw − 1`` keeps the old conv
+    window, as the reference); with ``"rows"`` (B,) in it, a prefill
+    writes those batch rows of a larger cache."""
     cdt = _dt(cfg, "compute")
     proj = u @ p["w_in"].to(cdt)                          # (B,S,2di+2ds+nh)
     if isinstance(proj, DTensor) and ssm_cache is None:
@@ -208,7 +209,9 @@ def _mixer(p: dict, cfg: ModelConfig, proj: torch.Tensor,
     conv_w = p["conv_w"].to(cdt)
     conv_b = p["conv_b"].to(cdt)
     kw = cfg.ssm_conv
-    if ssm_cache is None or s > 1:
+    rows = None if ssm_cache is None else ssm_cache.get("rows")
+    chunked = ssm_cache is None or s > 1 or rows is not None
+    if chunked:
         padded = F.pad(xbc, (0, 0, kw - 1, 0))
         # the causal depthwise conv as a sum of shifted slices
         conv = sum(padded[:, i:i + s] * conv_w[i] for i in range(kw)) \
@@ -236,7 +239,7 @@ def _mixer(p: dict, cfg: ModelConfig, proj: torch.Tensor,
     if valid is not None:
         dtv = dtv * valid[:, :, None].float()
 
-    if ssm_cache is None or s > 1:
+    if chunked:
         with trace.span("ssm.scan"):
             y, new_state = _ssd_chunked(xh.float(), dtv, p["a_log"],
                                         bm.float(), cm.float(), cfg.ssm_chunk)
@@ -259,10 +262,20 @@ def _mixer(p: dict, cfg: ModelConfig, proj: torch.Tensor,
     yn = (yz * torch.rsqrt(var + cfg.norm_eps)).reshape(b, s, di)
     yn = (yn * p["norm"]["scale"].float()).to(cdt)
     if ssm_cache is not None:
-        ssm_cache["state"].copy_(new_state)
+        _write(ssm_cache["state"], rows, new_state)
         if new_conv is not None:
-            ssm_cache["conv"].copy_(new_conv)
+            _write(ssm_cache["conv"], rows, new_conv)
     return yn
+
+
+def _write(cache: torch.Tensor, rows: torch.Tensor | None,
+           new: torch.Tensor) -> None:
+    """``new`` into the cache in place: every row, or the batch rows
+    ``rows`` of a larger cache."""
+    if rows is None:
+        cache.copy_(new)
+    else:
+        cache.index_copy_(0, rows, new.to(cache.dtype))
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:

@@ -16,12 +16,25 @@ continuous batching (``repro.serve.engine`` on torch).
   logits before the next step overwrites them.
 
 The caches live on the engine's device and are written in place: a
-prefill gets views of its slot's caches (:meth:`ServeEngine._slot_caches`:
-K/V and positions, SSM state and conv window) and writes them directly,
-which is what the reference's ``_write_slot`` does after its functional
-prefill.  SSM and hybrid architectures prefill right-padded to a multiple
-of ``ssm_chunk``: the pads get the sentinel position and a ``valid`` mask
-keeps them out of the SSM state (the reference's exact padded prefill).
+prefill gets the engine's caches with the batch rows of its slots
+(:meth:`ServeEngine._slot_caches`: K/V and positions, SSM state and conv
+window, each part carrying a ``"rows"`` index) and writes those rows
+directly, which is what the reference's ``_write_slot`` does after its
+functional prefill.  SSM and hybrid architectures prefill right-padded to
+a multiple of ``ssm_chunk``: the pads get the sentinel position and a
+``valid`` mask keeps them out of the SSM state (the reference's exact
+padded prefill).
+
+The requests admitted at one step (a wave) prefill in batched forwards:
+sorted by padded length and cut into groups whose rows times longest
+padded length stay within ``prefill_tokens`` (``max_prompt``, the
+engine's bound on one prefill), one ``(rows, S)`` forward a group, each
+row right-padded to the group's length with its own ``valid`` row and
+positions, one host read of the rows' greedy tokens.  Which requests are
+admitted, when, and into which slots stays as with one request a forward.
+A config whose prefill couples the rows of a batch (a capacity-bounded MoE
+dispatch drops pairs by the batch's token count) has ``prefill_tokens``
+0: one request a forward.
 
 A cross-attention (VLM) config raises ``NotImplementedError``: the
 reference engine cannot serve one (its prefill scans only
@@ -29,16 +42,18 @@ reference engine cannot serve one (its prefill scans only
 C-9), and the port does not invent a VLM serving path it lacks.
 
 The engine keeps host-clock walls: ``prefill_s`` (one per admitted
-request, prefill + first sample) and ``decode_s`` (one per step, decode +
-samples); each ends at the host read of a sampled token, which waits for
-the device.  While a profile records, :meth:`ServeEngine.run` is a
-``serve.run`` root with ``serve.prefill`` and ``serve.decode`` spans and
-its counters (:mod:`repro_torch.trace`).  ``keep_logits``: request ids
-whose logits (the prefill's last row and every decode step's) are copied
-to the host as float32, in ``logits[rid]``, and the expert choice of every
-MoE layer at each position they fed (the prompt's, then each decode
-step's), in ``routes[rid]`` as ``(MoE layers, positions, K)`` pieces — a
-check's rerun, not the served path.
+request, the wall of the forward that prefilled it and of its first
+samples) and ``decode_s`` (one per step, decode + samples); each ends at
+the host read of sampled tokens, which waits for the device;
+``prefill_groups`` holds the request ids of each prefill forward.  While
+a profile records, :meth:`ServeEngine.run` is a ``serve.run`` root with a
+``serve.prefill`` span per prefill forward and a ``serve.decode`` span per
+step, and its counters (:mod:`repro_torch.trace`).  ``keep_logits``:
+request ids whose logits (the prefill's last row and every decode step's)
+are copied to the host as float32, in ``logits[rid]``, and the expert
+choice of every MoE layer at each position they fed (the prompt's, then
+each decode step's), in ``routes[rid]`` as ``(MoE layers, positions, K)``
+pieces — a check's rerun, not the served path.
 """
 from __future__ import annotations
 
@@ -71,9 +86,9 @@ class Request:
 
 def _prefill_fn(params, cfg: ModelConfig, tokens: torch.Tensor,
                 valid: torch.Tensor, caches: list[dict]):
-    """tokens, valid: (1, S) -> (logits at the last valid position (1, V),
-    caches written in place).  Pads get the sentinel position, so their
-    keys are never attended, and ``valid`` keeps them out of the SSM
+    """tokens, valid: (B, S) -> (logits at each row's last valid position
+    (B, V), caches written in place).  Pads get the sentinel position, so
+    their keys are never attended, and ``valid`` keeps them out of the SSM
     state.  Only the last valid position is unembedded (the reference
     unembeds every position and keeps that one: the same row-wise
     values)."""
@@ -118,6 +133,16 @@ class ServeEngine:
         if cfg.n_attention_layers:
             slots = min(max_len, cfg.sliding_window or max_len)
             self.max_prompt = slots // self.chunk * self.chunk
+        #: the most padded tokens (rows × the longest padded prompt) one
+        #: prefill forward of several requests holds — ``max_prompt``, or
+        #: without a KV cache ``max_len`` rounded down to the SSM chunk; a
+        #: request alone may take more.  0 (one request a forward) where a
+        #: layer couples the rows of a batch: a capacity-bounded MoE
+        #: dispatch drops pairs by the batch's token count
+        self.prefill_tokens = self.max_prompt or max_len // self.chunk \
+            * self.chunk
+        if (cfg.moe or "moe" in cfg.layer_kinds) and cfg.capacity_factor > 0:
+            self.prefill_tokens = 0
         self.slot_req: list[Request | None] = [None] * n_slots
         self.slot_pos = np.zeros(n_slots, dtype=np.int32)
         self.slot_next = np.zeros(n_slots, dtype=np.int32)
@@ -127,6 +152,8 @@ class ServeEngine:
         self._steps = 0
         self.prefill_s: list[float] = []
         self.decode_s: list[float] = []
+        #: the request ids of each prefill forward, in order
+        self.prefill_groups: list[list[int]] = []
         #: request ids whose logits are kept (None: none), and those kept
         self.keep_logits: set[int] | None = None
         self.logits: dict[int, list[torch.Tensor]] = {}
@@ -144,38 +171,80 @@ class ServeEngine:
                                   temperature))
         return self._rid
 
-    def _slot_caches(self, slot: int) -> list[dict]:
-        """Views of one slot's caches (batch axis sliced, storage shared)."""
-        return [{kind: {n: t[slot:slot + 1] for n, t in part.items()}
-                 for kind, part in c.items()} for c in self.caches]
+    def _slot_caches(self, slots: list[int]) -> list[dict]:
+        """The engine's caches for a prefill of ``slots``: each part with
+        its batch rows (``"rows"``), which the layers write in place."""
+        rows = torch.tensor(slots, device=self.device)
+        return [{kind: {**part, "rows": rows} for kind, part in c.items()}
+                for c in self.caches]
+
+    def _pad(self, n: int) -> int:
+        return -(-n // self.chunk) * self.chunk
+
+    def _groups(self, wave: list[tuple[int, Request]]
+                ) -> list[list[tuple[int, Request]]]:
+        """A wave's (slot, request) pairs cut into prefill forwards: sorted
+        by padded length (stably), each group as long as its rows times
+        its longest padded length stay within ``prefill_tokens``."""
+        groups: list[list[tuple[int, Request]]] = []
+        for item in sorted(wave, key=lambda it: self._pad(len(it[1].prompt))):
+            s_pad = self._pad(len(item[1].prompt))
+            if groups and (len(groups[-1]) + 1) * s_pad \
+                    <= self.prefill_tokens:
+                groups[-1].append(item)
+            else:
+                groups.append([item])
+        return groups
 
     def _admit(self) -> None:
+        wave = []
         for slot in range(self.n_slots):
-            if self.slot_req[slot] is not None or not self.queue:
-                continue
-            t0 = time.perf_counter()
-            req = self.queue.pop(0)
-            s = len(req.prompt)
-            s_pad = -(-s // self.chunk) * self.chunk
-            with trace.span("serve.prefill"):
-                tok = torch.zeros((1, s_pad), dtype=torch.int64)
-                tok[0, :s] = torch.tensor(req.prompt)
-                tok = tok.to(self.device)
-                valid = (torch.arange(s_pad) < s)[None].to(self.device)
-                kept = self._kept(req)
-                with MOE.recording() if kept else contextlib.nullcontext() \
-                        as routes:
-                    logits, _ = _prefill_fn(self.params, self.cfg, tok,
-                                            valid, self._slot_caches(slot))
-                if kept:
-                    self._keep(req, logits[0], [r[:s] for r in routes])
-                nxt = self._sample(logits[0], req)
-            trace.count("serve.prompt_tokens", s)
-            req.out_tokens.append(nxt)
+            if self.slot_req[slot] is None and self.queue:
+                wave.append((slot, self.queue.pop(0)))
+        for group in self._groups(wave):
+            self._prefill(group)
+
+    def _prefill(self, group: list[tuple[int, Request]]) -> None:
+        """One forward over the group's prompts, each row right-padded to
+        the longest; its slots' caches written, each request's first token
+        sampled (the greedy ones read in one host read)."""
+        t0 = time.perf_counter()
+        slots = [slot for slot, _req in group]
+        reqs = [req for _slot, req in group]
+        lens = [len(req.prompt) for req in reqs]
+        s_pad = self._pad(max(lens))
+        with trace.span("serve.prefill"):
+            tok = torch.zeros((len(reqs), s_pad), dtype=torch.int64)
+            for i, req in enumerate(reqs):
+                tok[i, :lens[i]] = torch.tensor(req.prompt)
+            tok = tok.to(self.device)
+            valid = (torch.arange(s_pad)[None]
+                     < torch.tensor(lens)[:, None]).to(self.device)
+            kept = [self._kept(req) for req in reqs]
+            with MOE.recording() if any(kept) else \
+                    contextlib.nullcontext() as routes:
+                logits, _ = _prefill_fn(self.params, self.cfg, tok, valid,
+                                        self._slot_caches(slots))
+            for i, req in enumerate(reqs):
+                if kept[i]:
+                    self._keep(req, logits[i], [
+                        r.reshape(len(reqs), s_pad, -1)[i, :lens[i]]
+                        for r in routes])
+            greedy = logits.argmax(-1).tolist()     # the group's host read
+            nxt = [greedy[i] if req.temperature <= 0.0
+                   else self._sample(logits[i], req)
+                   for i, req in enumerate(reqs)]
+        trace.count("serve.prefill_forwards")
+        trace.count("serve.prompt_tokens", sum(lens))
+        self.prefill_groups.append([req.rid for req in reqs])
+        wall = time.perf_counter() - t0
+        for slot, req, s, tok_next in zip(slots, reqs, lens, nxt,
+                                          strict=True):
+            req.out_tokens.append(tok_next)
             self.slot_req[slot] = req
             self.slot_pos[slot] = s
-            self.slot_next[slot] = nxt
-            self.prefill_s.append(time.perf_counter() - t0)
+            self.slot_next[slot] = tok_next
+            self.prefill_s.append(wall)
 
     def _kept(self, req: Request) -> bool:
         return self.keep_logits is not None and req.rid in self.keep_logits

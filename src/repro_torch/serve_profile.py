@@ -14,7 +14,8 @@ device time / wall):
 
 * ``serve_prefill`` — one prefill of a ``PREFILL_LEN``-token prompt into a
   slot's caches (``_prefill_fn`` and the greedy sample of the first
-  token, what ``ServeEngine._admit`` runs per request);
+  token, what ``ServeEngine._prefill`` runs for a forward of one
+  request);
 * ``serve_decode`` — one ``ServeEngine.step`` with all four slots active,
   their positions between 1024 and 2048: one replay of the engine's CUDA
   graph of ``decode_step`` and one host read of the four greedy tokens;
@@ -96,7 +97,7 @@ def main(argv=None) -> int:
 
     def prefill():
         logits, _ = _prefill_fn(params, cfg, prompt, valid,
-                                eng._slot_caches(0))
+                                eng._slot_caches([0]))
         return int(torch.argmax(logits[0]))
 
     cells = {"serve_prefill": measure(prefill, REPS)}

@@ -50,8 +50,9 @@ nothing).
 The spans of one ``ServeEngine.run`` (``serve/engine.py``)::
 
     serve.run                     the root, once
-      serve.prefill               one admitted request: its prefill and
-                                  first sample (ends at that host read)
+      serve.prefill               one prefill forward of one or more
+                                  admitted requests and their first
+                                  samples (ends at that host read)
         moe.route, moe.dispatch,  each MoE layer of an eager call
         moe.experts, moe.combine  (models/moe.py)
         ssm.scan                  each chunked SSD (models/ssm.py)
@@ -60,8 +61,9 @@ The spans of one ``ServeEngine.run`` (``serve/engine.py``)::
 
 A decode step replayed as a CUDA graph opens no span inside it (on the
 CPU the step runs eagerly and opens the layers' spans too).  Counters:
-``serve.prompt_tokens``, ``serve.decode_tokens`` (tokens the decode steps
-emitted), ``serve.steps``, and, read once per run from the grouped expert
+``serve.prompt_tokens``, ``serve.prefill_forwards`` (one a prefill
+forward), ``serve.decode_tokens`` (tokens the decode steps emitted),
+``serve.steps``, and, read once per run from the grouped expert
 product's device ring (``kernels/moe_grouped.py``, which graph replays
 write too), ``moe.launches``, ``moe.experts`` and ``moe.rows`` summed, with
 each launch's ``(experts with rows, rows)`` under the record's

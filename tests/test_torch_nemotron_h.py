@@ -121,6 +121,72 @@ def test_engine_prefill_then_cached_decode_match_the_full_forward():
         assert r.out_tokens == want.argmax(-1).tolist()
 
 
+#: prompts straddling the SSD chunk's edges (16 in ``small()``), one
+#: shorter than ``ssm_conv − 1`` = 3
+WAVE = (17, 2, 16, 33, 15, 1, 31)
+
+
+def _serve_wave(cfg, p, prefill_tokens=None):
+    """WAVE on 7 slots of 80 tokens, 5 new tokens each, every request's
+    logits and routes kept: -> (engine, requests by id)."""
+    eng = ServeEngine(cfg, p, n_slots=7, max_len=80, device="cpu")
+    if prefill_tokens is not None:
+        eng.prefill_tokens = prefill_tokens
+    gen = torch.Generator().manual_seed(8)
+    for n in WAVE:
+        eng.submit(torch.randint(0, cfg.vocab, (n,), generator=gen).tolist(),
+                   max_new_tokens=5)
+    eng.keep_logits = set(range(1, len(WAVE) + 1))
+    return eng, {r.rid: r for r in eng.run()}
+
+
+def test_batched_prefill_equals_one_request_a_forward():
+    """The wave in batched prefill forwards (rows padded to their group's
+    longest, at most ``max_prompt`` = 80 padded tokens a forward) against
+    one request a forward and against the reference's full forward: the
+    same tokens, logits within TOL, the same expert choices at every fed
+    position (each row's routes sliced from its group's)."""
+    cfg = small()
+    p = params(cfg, seed=7)
+    one, want = _serve_wave(cfg, p, prefill_tokens=0)
+    eng, got = _serve_wave(cfg, p)
+    assert eng.prefill_tokens == eng.max_prompt == 80
+    assert len(one.prefill_groups) == len(WAVE)
+    assert eng.prefill_groups == [[2, 3, 5, 6], [1, 7], [4]]
+    for rid, r in got.items():
+        assert r.out_tokens == want[rid].out_tokens, rid
+        lg, lo = torch.stack(eng.logits[rid]), torch.stack(one.logits[rid])
+        assert rel(lg, lo) <= TOL, rid
+        assert torch.equal(torch.cat(eng.routes[rid], 1),
+                           torch.cat(one.routes[rid], 1)), rid
+        seq = r.prompt + r.out_tokens[:-1]
+        ref = R.forward(p, published(cfg), seq)[len(r.prompt) - 1:]
+        assert rel(lg, ref) <= TOL, rid
+        assert r.out_tokens == ref.argmax(-1).tolist(), rid
+
+
+def test_prefill_forwards_are_counted_once_a_forward():
+    """``serve.prefill_forwards`` counts the forwards (one a group of
+    ``prefill_groups``, one ``serve.prefill`` span each); the prompt tokens
+    are those of the requests, batched or not."""
+    cfg = small()
+    p = params(cfg, seed=7)
+    counts = []
+    for cap in (None, 0):
+        trace.clear()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            eng, _done = _serve_wave(cfg, p, prefill_tokens=cap)
+        rec, = trace.calls()
+        n = len(eng.prefill_groups)
+        assert rec["counts"]["serve.prefill_forwards"] == n
+        assert _named(prof, "serve.prefill") == {"serve.prefill": n}
+        counts.append(rec["counts"])
+    assert counts[0]["serve.prompt_tokens"] == sum(WAVE) \
+        == counts[1]["serve.prompt_tokens"]
+    assert (counts[0]["serve.prefill_forwards"],
+            counts[1]["serve.prefill_forwards"]) == (3, len(WAVE))
+
+
 def test_the_engine_keeps_the_expert_choice_of_every_fed_position():
     """A kept request's routes: per MoE layer, the k experts of each prompt
     position (the prefill) then of each fed token (the decode steps, from
@@ -365,10 +431,11 @@ def _named(prof, prefix):
 
 def test_spans_and_counters_of_one_run():
     """3 requests of 10, 20 and 30 tokens (pads to 16, 32, 32), 4 new
-    tokens each, on 2 slots: 3 prefills and 6 decode steps (3 with two
-    slots busy; the third request waits for a slot, then 3 alone); on the
-    CPU every decode step runs eagerly, so each MoE layer opens its spans
-    in every prefill and every step, and each step's grouped product takes
+    tokens each, on 2 slots: 2 prefill forwards (the first two requests in
+    one forward of 2 × 32 tokens, the third alone when a slot frees) and 6
+    decode steps (3 with two slots busy, then 3 alone); on the CPU every
+    decode step runs eagerly, so each MoE layer opens its spans in every
+    prefill forward and every step, and each step's grouped product takes
     both slots' rows."""
     cfg = small()
     eng = ServeEngine(cfg, params(cfg), n_slots=2, max_len=64, device="cpu")
@@ -377,11 +444,12 @@ def test_spans_and_counters_of_one_run():
     trace.clear()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         eng.run()
-    steps, prefills = eng._steps, 3
+    steps, prefills = eng._steps, 2
     assert steps == 6
+    assert eng.prefill_groups == [[1, 2], [3]]
     calls = eng_calls = (prefills + steps)
     n_moe, n_ssm = 2, 2
-    assert _named(prof, "serve.") == {"serve.run": 1, "serve.prefill": 3,
+    assert _named(prof, "serve.") == {"serve.run": 1, "serve.prefill": 2,
                                       "serve.decode": steps}
     assert _named(prof, "moe.") == {f"moe.{k}": n_moe * calls for k in
                                     ("route", "dispatch", "experts",
@@ -391,9 +459,10 @@ def test_spans_and_counters_of_one_run():
     assert rec["name"] == "serve.run"
     pairs = cfg.moe_top_k
     assert rec["counts"] == {
-        "serve.prompt_tokens": 60, "serve.steps": steps,
+        "serve.prompt_tokens": 60, "serve.prefill_forwards": prefills,
+        "serve.steps": steps,
         "serve.decode_tokens": 9, "moe.launches": n_moe * eng_calls,
-        "moe.rows": n_moe * pairs * (16 + 32 + 32 + 2 * steps),
+        "moe.rows": n_moe * pairs * (2 * 32 + 32 + 2 * steps),
         "moe.experts": sum(e for e, _r in rec["lists"]["moe.launch"])}
     assert len(rec["lists"]["moe.launch"]) == n_moe * eng_calls
     assert all(1 <= e <= cfg.n_experts for e, _r in

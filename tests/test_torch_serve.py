@@ -255,6 +255,77 @@ def test_engine_greedy_tokens_equal_reference(fam):
     assert len(te.prefill_s) == 3 and len(te.decode_s) == te._steps
 
 
+#: a wave of prompts straddling the SSD chunk's edges (16 at the smoke
+#: configs), one shorter than ``ssm_conv − 1`` = 3
+WAVE = (1, 17, 16, 33, 2, 15, 31, 9)
+
+
+def _serve_wave(cfg, params, *, prefill_tokens=None, keep=True):
+    """WAVE on 8 slots of 96 tokens, 4 new tokens each: -> (engine,
+    tokens a request); ``prefill_tokens`` 0 prefills one request a
+    forward."""
+    eng = TServe(cfg, params, n_slots=8, max_len=96, device="cpu")
+    if prefill_tokens is not None:
+        eng.prefill_tokens = prefill_tokens
+    if keep:
+        eng.keep_logits = set(range(1, len(WAVE) + 1))
+    rng = np.random.default_rng(5)
+    for n in WAVE:
+        eng.submit(rng.integers(2, cfg.vocab, n).tolist(), max_new_tokens=4)
+    return eng, {r.rid: r.out_tokens for r in eng.run()}
+
+
+def _port(name: str, **kw):
+    cfg = TC.get_config(name).smoke().replace(**kw)
+    return cfg, TT.init_params(torch.Generator().manual_seed(3), cfg)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("mamba2-780m", {}), ("hymba-1.5b", {"sliding_window": 96}),
+    ("qwen3-4b", {})])
+def test_batched_prefill_equals_one_request_a_forward(name, kw):
+    """The wave prefilled in batched forwards (sorted by padded length, at
+    most ``prefill_tokens`` padded tokens a forward of several) against
+    one request a forward: the same tokens, the prefill's and every decode
+    step's logits within 1e-5 of their size, and fewer forwards."""
+    cfg, params = _port(name, **kw)
+    one, want = _serve_wave(cfg, params, prefill_tokens=0)
+    eng, got = _serve_wave(cfg, params)
+    assert got == want
+    for rid in want:
+        a, b = torch.stack(eng.logits[rid]), torch.stack(one.logits[rid])
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5, rid
+    assert all(len(g) == 1 for g in one.prefill_groups)
+    assert len(eng.prefill_groups) < len(WAVE)
+    assert sorted(r for g in eng.prefill_groups for r in g) == \
+        list(range(1, len(WAVE) + 1))
+    assert eng.prefill_tokens == (eng.max_prompt or 96)
+
+
+@pytest.mark.parametrize("name", ["qwen3-4b", "mamba2-780m",
+                                  "qwen2-moe-a2.7b"])
+def test_no_prefill_forward_exceeds_its_bound(name):
+    """Each forward of several requests holds at most ``prefill_tokens``
+    padded tokens (rows × the longest padded prompt); the grouping is the
+    same with and without kept logits (a check's rerun groups as the
+    served call did); a capacity-bounded MoE dispatch (qwen2-moe: the
+    batch's token count sets what it drops) prefills one request a
+    forward."""
+    cfg, params = _port(name)
+    eng, got = _serve_wave(cfg, params)
+    bare, want = _serve_wave(cfg, params, keep=False)
+    assert got == want and eng.prefill_groups == bare.prefill_groups
+    lens = dict(zip(range(1, len(WAVE) + 1), WAVE, strict=True))
+    for g in eng.prefill_groups:
+        s_pad = max(eng._pad(lens[r]) for r in g)
+        assert len(g) == 1 or len(g) * s_pad <= eng.prefill_tokens, g
+    if cfg.moe:
+        assert eng.prefill_tokens == 0
+        assert len(eng.prefill_groups) == len(WAVE)
+    else:
+        assert len(eng.prefill_groups) < len(WAVE)
+
+
 def test_engine_matches_manual_decode():
     """Engine prefill + decode == greedy over a growing full forward."""
     _rcfg, _rp, tcfg, tp = _models("qwen3-4b")
