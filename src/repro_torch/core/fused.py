@@ -9,11 +9,14 @@ Every fused Boolean APA resolves in one launch of the ``senseamp`` kernel
 static offsets as one ``(N, W)`` plane and the per-bank comparator
 thresholds as one ``(N,)`` vector; no per-trial plane is built.
 
-Bit-exact parity with the loop path
------------------------------------
-Per bank, results and the command log equal the per-bank loop path
-(``fused=False``), and under ``draws="numpy"`` they equal the reference's
-fused path:
+One APA body
+------------
+The APA protocol (plan, op context, comparator or NOT plane, write-back)
+is written once, in :meth:`BankSim.apa`, over a bank axis: the one-bank
+loop path is N = 1, and this module supplies only what differs per bank.
+Per bank, results and the command log therefore equal the per-bank loop
+path (``fused=False``), and under ``draws="numpy"`` they equal the
+reference's fused path:
 
 * *Draws*: each command draws through one generator per bank, keyed
   ``SeedSequence([noise_seed_b, 0x7A1A1, k_b])`` exactly as bank b's own
@@ -23,11 +26,11 @@ fused path:
   ``torch.Generator`` fills rows ``b*T .. (b+1)*T`` of one device buffer.
   Either way slice b is bank b's loop draw bit for bit.
 * *Chip identity*: static latents are evaluated per bank seed and stacked
-  ``(N, w)``; decoder activations are evaluated per bank seed per APA.
-* *Analog scalars*: the margin offset ``dv`` differs per bank (regions and
-  die), so each bank's threshold ``-(dv_b - shift - delta_v)`` is rounded to
-  float32 as the loop path rounds its own and compared per bank in the
-  kernel — the same float arithmetic as the loop, not a folded plane.
+  ``(N, w)``; decoder activations are evaluated per bank seed per APA
+  (:meth:`FusedBankSim._activation`).  From them the shared body derives
+  the ``(N, w)`` static and NOT planes and one threshold per bank, rounded
+  to float32 as that bank's own episode rounds it and compared per bank in
+  the kernel — the same float arithmetic as the loop, not a folded plane.
 * *Row slots*: every fused ISA op recycles row slots on entry, which pins
   all banks to one shared first-touch slot order; divergent per-bank slot
   maps raise :class:`FusedExecutionError`.
@@ -40,28 +43,14 @@ execution stay on the loop) and ``fused=True`` where it cannot apply raises
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
 from .. import trace
-from ..kernels import ops as kops
-from ..kernels.senseamp import round_to
-from . import analog as A
 from . import decoder as DEC
 from .analog import ALL_OPS, _base_op
-from .device import ActivationSupport, ENERGY_PJ, VIOLATED_TRAS_NS, \
-    VIOLATED_TRP_NS
 from .isa import CapabilityError, PudIsa, inventory_for
-from .simulator import (_NP_DTYPE, STATIC_SPLIT, BankSim, _norm_ppf,
-                        torch_seed)
-
-
-class FusedExecutionError(RuntimeError):
-    """Per-bank execution diverged where fusion requires lockstep (row-slot
-    allocation, draw shape or noise-context sign) — a bug guard, not a
-    capability limit: callers gate fusion, they do not catch this."""
+from .simulator import _NP_DTYPE, BankSim, FusedExecutionError, torch_seed
 
 
 class FusedGeometryError(CapabilityError):
@@ -157,10 +146,11 @@ class FusedBankSim(BankSim):
 
     ``bank_seeds`` fixes each bank's chip identity (decoder map + static SA
     offsets); ``trials`` is the per-bank trial count T.  The base class runs
-    unchanged at ``N*T`` trials; this class overrides only where banks
-    differ: noise streams, static latents, analog scalars, decoder
-    activations and the row -> slot map.  ``track_unshared`` is forced off;
-    other keywords (``draws``, ``device``, ...) are ``BankSim``'s."""
+    unchanged at ``N*T`` trials, its APA body included; this class
+    overrides only where banks differ: noise streams, static latents,
+    decoder activations and the row -> slot map.  ``track_unshared`` is
+    forced off; other keywords (``draws``, ``device``, ...) are
+    ``BankSim``'s."""
 
     def __init__(self, module=None, *, bank_seeds, trials: int,
                  noise_seeds=None, **kw):
@@ -192,8 +182,6 @@ class FusedBankSim(BankSim):
                 f"{len(self.bank_noise_seeds)}")
         #: per-bank command counters (the loop path's ``_trial`` per bank)
         self._bank_trial = [0] * self.n_banks
-        self._param_cache: dict = {}
-        self._not_z_cache: dict = {}
 
     # ---------------- per-bank noise streams ----------------
     def _rng(self) -> _FusedDraws:
@@ -248,7 +236,10 @@ class FusedBankSim(BankSim):
 
     # ---------------- per-bank row maps, shared slots ----------------
     def _pb_vals(self, rows) -> np.ndarray:
-        """(N, k) per-bank row matrix from a PerBank or a shared spec."""
+        """(N, k) per-bank row matrix from a PerBank, an (N, k) array (an
+        activation's rows) or a shared spec."""
+        if isinstance(rows, np.ndarray) and rows.ndim == 2:
+            rows = PerBank(rows)
         if isinstance(rows, PerBank):
             r = rows.vals
             if r.ndim == 1:
@@ -306,6 +297,22 @@ class FusedBankSim(BankSim):
                 "storage slot a row occupies")
         return idx[0]
 
+    def _activation(self, rf_global, rl_global):
+        """Per-bank decoder activations of one APA, all banks on one
+        subarray pair with one geometry -> (f_sub, l_sub, R_F rows (N,),
+        R_L rows (N,), :class:`FusedActivation`)."""
+        rps = self.geom.rows_per_subarray
+        f_subs, f_rows = np.divmod(self._pb_vals(rf_global)[:, 0], rps)
+        l_subs, l_rows = np.divmod(self._pb_vals(rl_global)[:, 0], rps)
+        if not ((f_subs == f_subs[0]).all()
+                and (l_subs == l_subs[0]).all()):
+            raise FusedGeometryError(
+                "fused APA needs one subarray pair shared by all banks")
+        fact = _uniform_fact([
+            DEC.activation_pattern(self.module, int(f), int(l), seed=s)
+            for f, l, s in zip(f_rows, l_rows, self.bank_seeds)])
+        return int(f_subs[0]), int(l_subs[0]), f_rows, l_rows, fact
+
     def global_addr(self, sub: int, row):
         if isinstance(row, PerBank):
             return PerBank(sub * self.geom.rows_per_subarray + row.vals)
@@ -316,195 +323,6 @@ class FusedBankSim(BankSim):
                                  self._pb_vals(dst)[:, 0]], axis=1))
         isrc, idst = (int(i) for i in self._map_rows(sub, pair))
         self._clone_slots(sub, isrc, idst)
-
-    # ---------------- per-bank analog parameters ----------------
-    def _resolve_params(self, stripe: int, op: str, n: int, *,
-                        regions, random_pattern: bool):
-        """Fused analog scalars -> (s, static (N, w) float32 on the device,
-        pf, thr (N,) float32 on the device): ``dv`` and so the threshold
-        differ per bank; ``s`` / ``shift`` / ``pf`` are shared.  Memoized:
-        the inputs are pure functions of chip identity and the op context."""
-        reg_c = tuple(int(x) for x in np.atleast_1d(regions[0]))
-        reg_r = tuple(int(x) for x in np.atleast_1d(regions[1]))
-        key = (stripe, op, n, random_pattern, reg_c, reg_r)
-        cached = self._param_cache.get(key)
-        if cached is None:
-            p = self.params
-            dv = [A.margin_offset(op, p, compute_region=reg_c[b % len(reg_c)],
-                                  ref_region=reg_r[b % len(reg_r)],
-                                  mfr=self.module.manufacturer.value,
-                                  density_gb=self.module.density_gb,
-                                  die_rev=self.module.die_rev)
-                  for b in range(self.n_banks)]
-            s, _b, _wp, _wm = A.op_noise(
-                op, n, p, temp_c=self.temp_c, random_pattern=random_pattern,
-                speed_mts=self.module.speed_mts,
-                mfr=self.module.manufacturer.value,
-                density_gb=self.module.density_gb,
-                die_rev=self.module.die_rev)
-            shift = A.op_shift(op, n, p)
-            static = trace.to_device(self.static_offsets(
-                stripe, op, n, random_pattern=random_pattern),
-                self.device, self._noise_dtype)                  # (N, w)
-            pf = A.op_pfloor(op, n, p, temp_c=self.temp_c,
-                             random_pattern=random_pattern,
-                             speed_mts=self.module.speed_mts)
-            # each bank's threshold rounded as its loop episode rounds it
-            thr = torch.tensor([round_to(-(dv_b - shift - p.delta_v),
-                                         self._noise_dtype) for dv_b in dv],
-                               dtype=self._noise_dtype, device=self.device)
-            trace.count("h2d_copies")
-            cached = self._param_cache[key] = (s, static, pf, thr)
-        return cached
-
-    def _resolve(self, l_sub: int, rows_l, l_sl: slice, f_sub: int, rows_f,
-                 f_sl: slice, stripe: int, op: str, *, regions,
-                 random_pattern: bool, rng) -> torch.Tensor:
-        """The Boolean comparator of all banks in one kernel launch, with
-        the per-bank static plane and thresholds -> (N*T, w) uint8."""
-        kw = dict(width=self.shared_w, u_com=A.u_n(len(rows_l), self.params),
-                  u_ref=A.u_n(len(rows_f), self.params))
-        arr_l, arr_f = self._cells(l_sub), self._cells(f_sub)
-        if self.error_model in ("ideal", "none", "mean"):
-            return kops.senseamp_gather(arr_l, rows_l, l_sl.start, arr_f,
-                                        rows_f, f_sl.start, **kw)
-        s, static, pf, thr = self._resolve_params(
-            stripe, op, len(rows_l), regions=regions,
-            random_pattern=random_pattern)
-        shape = (self._T, self.shared_w)
-        nz = rng.normal(shape, self._noise_dtype)
-        u0 = rng.uniform(shape, self._noise_dtype)
-        return kops.senseamp_gather(
-            arr_l, rows_l, l_sl.start, arr_f, rows_f, f_sl.start,
-            static=static, normals=nz,
-            sigma=math.sqrt(max(1.0 - STATIC_SPLIT ** 2, 0.0)) * s,
-            u0=u0, pf=pf, thr=thr, bank_trials=self.trials_per_bank, **kw)
-
-    def _not_z(self, stripe: int, fact: "FusedActivation", reg_f,
-               reg_l) -> torch.Tensor:
-        """(N, w) per-cell NOT success latents, one cached row per bank."""
-        spread = 0.75
-        xi1, _xi2 = self._static_latents(stripe)               # (N, w)
-        zs = []
-        for b in range(self.n_banks):
-            key = (b, stripe, fact.n_rl, fact.kind, int(reg_f[b]),
-                   int(reg_l[b]))
-            z_b = self._not_z_cache.get(key)
-            if z_b is None:
-                p_ok = A.not_success(
-                    fact.n_rl,
-                    pattern=("N2N" if fact.kind == "N:2N" else "NN"),
-                    p=self.params, temp_c=self.temp_c,
-                    src_region=int(reg_f[b]), dst_region=int(reg_l[b]),
-                    speed_mts=self.module.speed_mts,
-                    mfr=self.module.manufacturer.value,
-                    density_gb=self.module.density_gb,
-                    die_rev=self.module.die_rev)
-                a = _norm_ppf(np.clip(p_ok, 1e-9, 1 - 1e-9)) \
-                    * math.sqrt(1.0 + spread ** 2)
-                z_b = trace.to_device(A.phi(a + spread * _norm_ppf(xi1[b])),
-                                      self.device, self._noise_dtype)
-                self._not_z_cache[key] = z_b
-            zs.append(z_b)
-        return torch.stack(zs)
-
-    # ---------------- fused APA ----------------
-    def apa(self, rf_global, rl_global, *, first_act_restored: bool = False,
-            random_pattern: bool = True) -> FusedActivation:
-        with trace.span("pud.apa.plan"):
-            rps = self.geom.rows_per_subarray
-            rfv = self._pb_vals(rf_global)[:, 0]
-            rlv = self._pb_vals(rl_global)[:, 0]
-            f_subs, f_rows = np.divmod(rfv, rps)
-            l_subs, l_rows = np.divmod(rlv, rps)
-            if not ((f_subs == f_subs[0]).all()
-                    and (l_subs == l_subs[0]).all()):
-                raise FusedGeometryError(
-                    "fused APA needs one subarray pair shared by all banks")
-            f_sub, l_sub = int(f_subs[0]), int(l_subs[0])
-            fact = _uniform_fact([
-                DEC.activation_pattern(self.module, int(f_rows[b]),
-                                       int(l_rows[b]),
-                                       seed=self.bank_seeds[b])
-                for b in range(self.n_banks)])
-            t = self.timings
-            t_first = t.tRAS if first_act_restored else VIOLATED_TRAS_NS
-            self.log.add("APA", t_first + VIOLATED_TRP_NS + t.tRAS + t.tRP,
-                         (fact.n_rf + fact.n_rl) * ENERGY_PJ["act"]
-                         + 2 * ENERGY_PJ["pre"],
-                         bank=self.bank, sub=f_sub)
-            if fact.n_rf == 0:
-                return fact
-            if self.module.activation is ActivationSupport.SEQUENTIAL \
-                    and not first_act_restored:
-                return fact
-            stripe, f_cols, l_cols = self._col_slices(f_sub, l_sub)
-            rows_f = self._map_rows(f_sub, PerBank(fact.rows_f))
-            rows_l = self._map_rows(l_sub, PerBank(fact.rows_l))
-            arr_f, arr_l = self._cells(f_sub), self._cells(l_sub)
-            idx_f, idx_l = self._index(rows_f), self._index(rows_l)
-            rng = self._rng()
-            geom = self.geom
-            reg_f = np.atleast_1d(geom.distance_regions(
-                f_rows, toward_upper=f_sub > l_sub))
-            reg_l = np.atleast_1d(geom.distance_regions(
-                l_rows, toward_upper=l_sub > f_sub))
-            nb, tb, w = self.n_banks, self.trials_per_bank, self.shared_w
-
-        if first_act_restored:
-            # ---- NOT protocol: per-bank success latents ----
-            with trace.span("pud.apa.resolve"):
-                n_src = fact.n_rf
-                u = A.u_n(n_src, self.params)
-                v_src = 0.5 + (self._row_sum(arr_f, rows_f, f_cols)
-                               - round_to(0.5 * n_src, torch.float32)) \
-                    * round_to(u, torch.float32)
-                src_bit = v_src > 0.5                       # (N*T, w)
-                if self.error_model == "analog":
-                    z = self._not_z(stripe, fact, reg_f, reg_l)    # (N, w)
-                    draw = rng.uniform(tuple(src_bit.shape),
-                                       self._noise_dtype)
-                    ok = (draw.view(nb, tb, w) < z[:, None]).view(
-                        src_bit.shape)
-                else:
-                    ok = torch.ones_like(src_bit)
-                dst_bit = torch.where(ok, ~src_bit, src_bit).to(torch.float32)
-            with trace.span("pud.apa.writeback"):
-                arr_l[:, idx_l, l_cols] = dst_bit[:, None, :]
-                arr_f[:, idx_f, f_cols] = src_bit.to(torch.float32)[:, None, :]
-                self._scattered(len(idx_l) + len(idx_f), w)
-        else:
-            # ---- Boolean-op protocol ----
-            # the noise context (AND- vs OR-family common mode) must agree
-            # across banks: per-bank float64 sums, one (N,) read per APA
-            with trace.span("pud.apa.opctx"):
-                n_f = fact.n_rf
-                lo = int(rows_f.min())
-                span = arr_f[:, lo:int(rows_f.max()) + 1, f_cols]
-                per_slot = span.reshape(nb, tb, span.shape[1], w).sum(
-                    dim=(1, 3), dtype=torch.float64)           # (N, slots)
-                total = per_slot[:, self._index(rows_f - lo)].sum(dim=1)
-                level = total.cpu().numpy() - 0.5 * n_f * tb * w
-                trace.count("reads.opctx")
-                ctx = level >= 0.0
-                if not (ctx == ctx[0]).all():
-                    raise FusedExecutionError(
-                        "reference common-mode sign differs across banks")
-                op_ctx = "and" if bool(ctx[0]) else "or"
-            with trace.span("pud.apa.resolve"):
-                out = self._resolve(l_sub, rows_l, l_cols, f_sub, rows_f,
-                                    f_cols, stripe, op_ctx,
-                                    regions=(reg_l, reg_f),
-                                    random_pattern=random_pattern, rng=rng)
-            with trace.span("pud.apa.writeback"):
-                outf = out.to(torch.float32)
-                arr_l[:, idx_l, l_cols] = outf[:, None, :]
-                arr_f[:, idx_f, f_cols] = (1.0 - outf)[:, None, :]
-                self._scattered(len(idx_l) + len(idx_f), w)
-        # track_unshared is forced off: no non-shared-column restore (and,
-        # as in the loop path, its draws are skipped too)
-        return fact
-
 
 class FusedPudIsa(PudIsa):
     """PudIsa over a :class:`FusedBankSim`: per-bank pair inventories and

@@ -49,6 +49,9 @@ from .device import (ActivationSupport, DRAMTimings, ModuleConfig,
 # fraction of the Gaussian sigma that is static (per-cell) vs per-trial
 STATIC_SPLIT = 0.8
 
+#: spread of the static per-cell variation of the NOT success rate (probit)
+NOT_SPREAD = 0.75
+
 #: per-cell flip probability of one same-subarray RowClone (analog model)
 ROWCLONE_FAIL_P = 2e-6
 
@@ -185,9 +188,18 @@ class CommandLog:
         self.events.clear()
 
 
+class FusedExecutionError(RuntimeError):
+    """Per-bank execution diverged where fusion requires lockstep (row-slot
+    allocation, draw shape or noise-context sign) — a bug guard, not a
+    capability limit: callers gate fusion, they do not catch this."""
+
+
 class BankSim:
     """One DRAM bank: lazily-allocated subarrays of float32 cell voltages,
     held as ``(T, slots, row_bits)`` tensors on ``device``."""
+
+    #: banks stacked on the trial axis (``FusedBankSim`` holds N)
+    n_banks = 1
 
     def __init__(self, module: ModuleConfig | str | None = None, *,
                  row_bits: int | None = None, seed: int = 0,
@@ -236,6 +248,9 @@ class BankSim:
         self._rowmap: dict[int, np.ndarray] = {}
         self._nrows: dict[int, int] = {}
         self._static: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        #: analog inputs of the comparator and NOT planes, by op context
+        self._param_memo: dict = {}
+        self._not_memo: dict = {}
         self._trial = 0
         # stripe-major column layout: storage position j < w holds physical
         # column 2j+1, position w+j holds column 2j
@@ -500,65 +515,119 @@ class BankSim:
             acc = acc + arr[:, int(r), cols]
         return acc
 
+    def _activation(self, rf_global, rl_global):
+        """Decode one APA's addresses -> (f_sub, l_sub, R_F rows, R_L rows,
+        activation): the rows are ``(N,)`` in-subarray addresses, one per
+        bank, and the activation is this bank's decoder pattern."""
+        rps = self.geom.rows_per_subarray
+        f_sub, f_row = divmod(rf_global, rps)
+        l_sub, l_row = divmod(rl_global, rps)
+        act = DEC.activation_pattern(self.module, f_row, l_row, seed=self.seed)
+        return f_sub, l_sub, np.array([f_row]), np.array([l_row]), act
+
     def _resolve_params(self, stripe: int, op: str, n: int, *,
-                        regions: tuple[int, int], random_pattern: bool):
-        """Analog scalars of one comparator resolve: (margin offset dv,
-        noise sigma s, threshold shift, static offsets (host), floor pf)."""
-        p = self.params
-        dv = A.margin_offset(op, p, compute_region=regions[0],
-                             ref_region=regions[1],
-                             mfr=self.module.manufacturer.value,
-                             density_gb=self.module.density_gb,
-                             die_rev=self.module.die_rev)
+                        regions: tuple, random_pattern: bool):
+        """Analog inputs of one comparator resolve -> (trial sigma, static
+        offsets on the device, floor pf, threshold).  The threshold
+        ``-(dv - shift - delta_v)`` is a float on one bank; on N banks it is
+        an ``(N,)`` tensor, each bank's rounded as its own episode rounds
+        it, beside an ``(N, w)`` static plane.  Memoised per sim, so per
+        bank seed: every input is a pure function of the chip's identity
+        (seeds, module, params, temperature, fixed at construction) and the
+        op context (stripe, op, n, pattern, ``(N,)`` regions)."""
+        reg_c, reg_r = (tuple(int(r) for r in rs) for rs in regions)
+        key = (stripe, op, n, random_pattern, reg_c, reg_r)
+        hit = self._param_memo.get(key)
+        if hit is not None:
+            return hit
+        p, m = self.params, self.module
         s, _b, _wp, _wm = A.op_noise(
             op, n, p, temp_c=self.temp_c, random_pattern=random_pattern,
-            speed_mts=self.module.speed_mts,
-            mfr=self.module.manufacturer.value,
-            density_gb=self.module.density_gb, die_rev=self.module.die_rev)
+            speed_mts=m.speed_mts, mfr=m.manufacturer.value,
+            density_gb=m.density_gb, die_rev=m.die_rev)
         shift = A.op_shift(op, n, p)
-        static = self.static_offsets(stripe, op, n,
-                                     random_pattern=random_pattern)
+        thr = [-(A.margin_offset(op, p, compute_region=c, ref_region=r,
+                                 mfr=m.manufacturer.value,
+                                 density_gb=m.density_gb, die_rev=m.die_rev)
+                 - shift - p.delta_v) for c, r in zip(reg_c, reg_r)]
+        # the kernel is float32 on CUDA (the reference's Pallas path casts
+        # scalar mode's float64 too)
+        kdt = torch.float32 if self.device.type == "cuda" \
+            else self._noise_dtype
+        static = trace.to_device(
+            self.static_offsets(stripe, op, n, random_pattern=random_pattern),
+            self.device, kdt)
+        if len(thr) == 1:
+            thr = thr[0]
+        else:
+            thr = torch.tensor([round_to(x, kdt) for x in thr], dtype=kdt,
+                               device=self.device)
+            trace.count("h2d_copies")
         pf = A.op_pfloor(op, n, p, temp_c=self.temp_c,
                          random_pattern=random_pattern,
-                         speed_mts=self.module.speed_mts)
-        return dv, s, shift, static, pf
+                         speed_mts=m.speed_mts)
+        sigma = math.sqrt(max(1.0 - STATIC_SPLIT ** 2, 0.0)) * s
+        hit = self._param_memo[key] = (sigma, static, pf, thr)
+        return hit
 
     def _resolve(self, l_sub: int, rows_l, l_sl: slice, f_sub: int, rows_f,
-                 f_sl: slice, stripe: int, op: str, *,
-                 regions: tuple[int, int], random_pattern: bool,
-                 rng) -> torch.Tensor:
-        """Sense-amp comparator of the Boolean protocol -> (T, w) uint8.
+                 f_sl: slice, stripe: int, op: str, *, regions: tuple,
+                 random_pattern: bool, rng) -> torch.Tensor:
+        """Sense-amp comparator of the Boolean protocol, every bank in one
+        kernel launch -> (N*T, w) uint8.
 
         Compute side = the R_L rows, reference side = the R_F rows.  Static
-        offsets broadcast across trials (one chip); noise and floor draws
-        are per trial: one normal and, batched, one uniform per lane (the
-        floor coin is ``u < pf/2`` given ``u < pf``), or in scalar mode a
-        flip and a coin uniform — the reference's draws in its order."""
-        n_l, n_f = len(rows_l), len(rows_f)
-        kw = dict(width=self.shared_w, u_com=A.u_n(n_l, self.params),
-                  u_ref=A.u_n(n_f, self.params))
+        offsets broadcast across a bank's trials (one chip); noise and floor
+        draws are per trial: one normal and, batched, one uniform per lane
+        (the floor coin is ``u < pf/2`` given ``u < pf``), or in scalar mode
+        a flip and a coin uniform — the reference's draws in its order."""
+        kw = dict(width=self.shared_w, u_com=A.u_n(len(rows_l), self.params),
+                  u_ref=A.u_n(len(rows_f), self.params))
         arr_l, arr_f = self._cells(l_sub), self._cells(f_sub)
         if self.error_model in ("ideal", "none", "mean"):
             return kops.senseamp_gather(arr_l, rows_l, l_sl.start, arr_f,
                                         rows_f, f_sl.start, **kw)
-        p = self.params
-        dv, s, shift, static, pf = self._resolve_params(
-            stripe, op, n_l, regions=regions, random_pattern=random_pattern)
+        sigma, static, pf, thr = self._resolve_params(
+            stripe, op, len(rows_l), regions=regions,
+            random_pattern=random_pattern)
         dt = self._noise_dtype
         shape = (self._T, self.shared_w)
         nz = rng.normal(shape, dt)
         u0 = rng.uniform(shape, dt)
         u1 = None if self.batched else rng.uniform(shape, dt)
-        static = trace.to_device(static, self.device, dt)
-        if self.device.type == "cuda" and dt != torch.float32:
-            # the kernel is float32 (the reference's Pallas path casts too)
-            nz, u0, u1, static = (x.to(torch.float32)
-                                  for x in (nz, u0, u1, static))
+        if static.dtype != dt:      # scalar mode on CUDA: float32 kernel
+            nz, u0, u1 = (x.to(torch.float32) for x in (nz, u0, u1))
         return kops.senseamp_gather(
             arr_l, rows_l, l_sl.start, arr_f, rows_f, f_sl.start,
-            static=static, normals=nz,
-            sigma=math.sqrt(max(1.0 - STATIC_SPLIT ** 2, 0.0)) * s,
-            u0=u0, u1=u1, pf=pf, thr=-(dv - shift - p.delta_v), **kw)
+            static=static, normals=nz, sigma=sigma, u0=u0, u1=u1, pf=pf,
+            thr=thr, bank_trials=self._T // self.n_banks, **kw)
+
+    def _not_plane(self, stripe: int, act, reg_f, reg_l) -> torch.Tensor:
+        """(N, w) per-cell NOT success probabilities on the device.
+
+        Static per-cell variation around the mean success rate:
+        E[phi(a + s Z)] = phi(a / sqrt(1+s^2)) keeps the cell mean exactly
+        equal to the closed-form ``not_success``.  Memoised on the op
+        context, as :meth:`_resolve_params` is."""
+        key = (stripe, act.n_rl, act.kind, tuple(int(r) for r in reg_f),
+               tuple(int(r) for r in reg_l))
+        z = self._not_memo.get(key)
+        if z is None:
+            m = self.module
+            p_ok = np.array([A.not_success(
+                act.n_rl, pattern=("N2N" if act.kind == "N:2N" else "NN"),
+                p=self.params, temp_c=self.temp_c, src_region=src,
+                dst_region=dst, speed_mts=m.speed_mts,
+                mfr=m.manufacturer.value, density_gb=m.density_gb,
+                die_rev=m.die_rev) for src, dst in zip(key[3], key[4])])
+            a = _norm_ppf(np.clip(p_ok, 1e-9, 1 - 1e-9)) \
+                * math.sqrt(1.0 + NOT_SPREAD ** 2)
+            xi1 = np.reshape(self._static_latents(stripe)[0],
+                             (self.n_banks, -1))
+            z = self._not_memo[key] = trace.to_device(
+                A.phi(a[:, None] + NOT_SPREAD * _norm_ppf(xi1)),
+                self.device, self._noise_dtype)
+        return z
 
     def _maj_restore(self, sub: int, rows, cols: slice, rng) -> None:
         """Same-subarray multi-row activation on non-shared columns: cells
@@ -578,22 +647,23 @@ class BankSim:
         arr[:, self._index(rows), cols] = out[:, None, :]
         self._scattered(len(rows), cols.stop - cols.start)
 
-    def apa(self, rf_global: int, rl_global: int, *,
-            first_act_restored: bool = False,
-            random_pattern: bool = True) -> DEC.Activation:
+    def apa(self, rf_global, rl_global, *, first_act_restored: bool = False,
+            random_pattern: bool = True):
         """``ACT R_F -> PRE -> ACT R_L`` with violated timings.
 
         Global row address = subarray * rows_per_subarray + row.
         ``first_act_restored=True`` models the NOT protocol (§5): R_F is
         fully restored and drives the R_L rows through the shared SAs.
         Otherwise both sides charge-share and the SA compares (§6).
-        """
+
+        One body for one bank and for N banks in lockstep: the trial axis
+        holds N banks of ``T / N`` trials, bank-major, and the per-bank
+        parts (decoder activations, draws, static latents, slot maps) come
+        from the hooks a multi-bank subclass overrides.  Returns the
+        activation (:class:`repro_torch.core.decoder.Activation` here)."""
         with trace.span("pud.apa.plan"):
-            rps = self.geom.rows_per_subarray
-            f_sub, f_row = divmod(rf_global, rps)
-            l_sub, l_row = divmod(rl_global, rps)
-            act = DEC.activation_pattern(self.module, f_row, l_row,
-                                         seed=self.seed)
+            f_sub, l_sub, f_rows, l_rows, act = self._activation(rf_global,
+                                                                 rl_global)
             t = self.timings
             t_first = t.tRAS if first_act_restored else VIOLATED_TRAS_NS
             self.log.add("APA", t_first + VIOLATED_TRP_NS + t.tRAS + t.tRP,
@@ -612,8 +682,10 @@ class BankSim:
             idx_f, idx_l = self._index(rows_f), self._index(rows_l)
             rng = self._rng()
             geom = self.geom
-            reg_f = geom.distance_region(f_row, toward_upper=f_sub > l_sub)
-            reg_l = geom.distance_region(l_row, toward_upper=l_sub > f_sub)
+            reg_f = geom.distance_regions(f_rows, toward_upper=f_sub > l_sub)
+            reg_l = geom.distance_regions(l_rows, toward_upper=l_sub > f_sub)
+            nb, w = self.n_banks, self.shared_w
+            tb = self._T // nb
 
         if first_act_restored:
             # ---- NOT protocol: R_F drives, R_L receives the complement ----
@@ -623,53 +695,44 @@ class BankSim:
                 v_src = 0.5 + (self._row_sum(arr_f, rows_f, f_cols)
                                - round_to(0.5 * n_src, torch.float32)) \
                     * round_to(u, torch.float32)
-                src_bit = v_src > 0.5                       # (T, w)
+                src_bit = v_src > 0.5                       # (N*T, w)
                 if self.error_model == "analog":
-                    p_ok = A.not_success(
-                        act.n_rl,
-                        pattern=("N2N" if act.kind == "N:2N" else "NN"),
-                        p=self.params, temp_c=self.temp_c,
-                        src_region=reg_f, dst_region=reg_l,
-                        speed_mts=self.module.speed_mts,
-                        mfr=self.module.manufacturer.value,
-                        density_gb=self.module.density_gb,
-                        die_rev=self.module.die_rev)
-                    # static per-cell variation around the mean success
-                    # rate; E[phi(a + s Z)] = phi(a / sqrt(1+s^2)) keeps the
-                    # cell-mean exactly equal to the closed-form not_success.
-                    spread = 0.75
-                    xi1, _xi2 = self._static_latents(stripe)
-                    a = _norm_ppf(np.clip(p_ok, 1e-9, 1 - 1e-9)) \
-                        * math.sqrt(1.0 + spread ** 2)
-                    dt = self._noise_dtype
-                    z = trace.to_device(A.phi(a + spread * _norm_ppf(xi1)),
-                                        self.device, dt)     # (w,) per cell
-                    ok = rng.uniform(tuple(src_bit.shape), dt) < z
+                    z = self._not_plane(stripe, act, reg_f, reg_l)  # (N, w)
+                    # the draw is a temporary: bound to a name it would
+                    # outlive the write-back and raise the memory peak
+                    ok = (rng.uniform(tuple(src_bit.shape), self._noise_dtype)
+                          .view(nb, tb, w) < z[:, None]).view(src_bit.shape)
                 else:
                     ok = torch.ones_like(src_bit)
                 dst_bit = torch.where(ok, ~src_bit, src_bit).to(torch.float32)
             with trace.span("pud.apa.writeback"):
                 arr_l[:, idx_l, l_cols] = dst_bit[:, None, :]
                 arr_f[:, idx_f, f_cols] = src_bit.to(torch.float32)[:, None, :]
-                self._scattered(len(idx_l) + len(idx_f), self.shared_w)
+                self._scattered(len(idx_l) + len(idx_f), w)
         else:
             # ---- Boolean-op protocol: comparator across the stripe ----
             # noise context: the reference level sets the common mode
             # (V_REF > VDD/2 -> AND-family, < VDD/2 -> OR-family); the sign
-            # of mean(v_f) is that of Σcells − n_f/2·T·w, summed in float64
-            # (the reference's float32 mean can differ only where the level
-            # is exactly VDD/2) — one reduction over the slot span holding
-            # the activated rows (no copy; the ISA allocates them adjacent)
-            # and one device-to-host read per APA
+            # of mean(v_f) is that of Σcells − n_f/2·T·w, summed per bank in
+            # float64 (the reference's float32 mean can differ only where
+            # the level is exactly VDD/2) — one reduction over the slot span
+            # holding the activated rows (no copy; the ISA allocates them
+            # adjacent) and one device-to-host read per APA: a scalar on one
+            # bank, an (N,) copy on N.  The sign must agree across banks.
             with trace.span("pud.apa.opctx"):
-                n_f = act.n_rf
                 lo = int(rows_f.min())
-                per_slot = arr_f[:, lo:int(rows_f.max()) + 1, f_cols].sum(
-                    dim=(0, 2), dtype=torch.float64)
-                total = per_slot[self._index(rows_f - lo)].sum()
-                level = float(total) - 0.5 * n_f * self._T * self.shared_w
+                span = arr_f[:, lo:int(rows_f.max()) + 1, f_cols]
+                per_slot = span.reshape(nb, tb, span.shape[1], w).sum(
+                    dim=(1, 3), dtype=torch.float64)           # (N, slots)
+                total = per_slot[:, self._index(rows_f - lo)].sum(dim=1)
+                total = np.array([float(total)]) if nb == 1 \
+                    else total.cpu().numpy()
                 trace.count("reads.opctx")
-                op_ctx = "and" if level >= 0.0 else "or"
+                ctx = total - 0.5 * act.n_rf * tb * w >= 0.0
+                if not (ctx == ctx[0]).all():
+                    raise FusedExecutionError(
+                        "reference common-mode sign differs across banks")
+                op_ctx = "and" if bool(ctx[0]) else "or"
             with trace.span("pud.apa.resolve"):
                 out = self._resolve(l_sub, rows_l, l_cols, f_sub, rows_f,
                                     f_cols, stripe, op_ctx,
@@ -679,7 +742,7 @@ class BankSim:
                 outf = out.to(torch.float32)
                 arr_l[:, idx_l, l_cols] = outf[:, None, :]
                 arr_f[:, idx_f, f_cols] = (1.0 - outf)[:, None, :]
-                self._scattered(len(idx_l) + len(idx_f), self.shared_w)
+                self._scattered(len(idx_l) + len(idx_f), w)
         # non-shared columns: same-subarray restore (MAJ against VDD/2)
         if self.track_unshared:
             with trace.span("pud.apa.writeback"):
@@ -696,10 +759,8 @@ class BankSim:
         lands in every R_F row and its complement in the shared half of
         every R_L row.  ``pattern`` is a (row_bits,) numpy array or
         tensor."""
-        rps = self.geom.rows_per_subarray
-        f_sub, f_row = divmod(rf_global, rps)
-        l_sub, l_row = divmod(rl_global, rps)
-        act = DEC.activation_pattern(self.module, f_row, l_row, seed=self.seed)
+        f_sub, l_sub, _f_rows, _l_rows, act = self._activation(rf_global,
+                                                               rl_global)
         self.log.add("APA+WR", 30.0, ENERGY_PJ["act"] * (act.n_rf + act.n_rl),
                      bank=self.bank, sub=f_sub)
         if act.n_rf == 0:

@@ -10,14 +10,18 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.bankarray import BankArray as RefArray
 from repro.core.isa import PudIsa as RefIsa
 from repro.core.isa import inventory_for
 from repro.core.simulator import BankSim as RefSim
+from repro_torch import trace
 from repro_torch.convert import bank_state_from_numpy, numpy_bank_state
 from repro_torch.core.bankarray import BankArray
+from repro_torch.core import decoder as DEC
 from repro_torch.core.isa import PudIsa
+from repro_torch.core.isa import inventory_for as port_inventory_for
 from repro_torch.core.simulator import BankSim
 
 #: the reference's tolerance for resolve-backend parity (float32 ties at
@@ -239,3 +243,53 @@ def test_bank_array_matches_reference():
     assert port.bank_time_ns() == ref.bank_time_ns()
     assert port.makespan_ns() == ref.makespan_ns() > 0
     assert port.total_time_ns() == ref.total_time_ns() > port.makespan_ns()
+
+
+def _staged_apa(sim, n_dst, restored, seed):
+    """Stage one APA's rows (the ISA's reference block and random operands,
+    or a random NOT source) and run it -> (h2d copies of the APA, the
+    activated rows' digital state on both sides)."""
+    n_rf = max(n_dst // 2, 1) if restored else n_dst
+    rf, rl = port_inventory_for(sim.module, sim.seed).choose(n_rf, n_dst, 3)
+    act = DEC.activation_pattern(sim.module, rf, rl, seed=sim.seed)
+    bits = np.random.default_rng(seed).integers(
+        0, 2, (len(act.rows_f) + len(act.rows_l), sim._T,
+               sim.geom.row_bits)).astype(np.uint8)
+    if restored:
+        sim.write_row(0, act.rows_f[0], bits[0])
+    else:
+        sim.fill_rows(0, act.rows_f[:-1], 1.0)
+        sim.frac_row(0, act.rows_f[-1])
+        for k, row in enumerate(act.rows_l):
+            sim.write_row(1, row, bits[k])
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with trace.root("apa"):
+            sim.apa(sim.global_addr(0, rf), sim.global_addr(1, rl),
+                    first_act_restored=restored)
+    return (trace.calls()[-1]["counts"]["h2d_copies"],
+            [_np(sim.snapshot_rows(0, act.rows_f)),
+             _np(sim.snapshot_rows(1, act.rows_l))])
+
+
+@pytest.mark.parametrize("draws", ["numpy", "device"])
+@pytest.mark.parametrize("restored, n_dst", [(False, 8), (True, 2)],
+                         ids=["boolean", "not"])
+def test_apa_memo_copies_once_and_changes_no_result(draws, restored, n_dst):
+    """Two APAs with one op context on one bank copy the static offsets
+    (Boolean) or the NOT plane to the device once, and each resolves as
+    the same APA on a fresh sim at the same point of its noise stream."""
+    kw = dict(row_bits=256, seed=6, error_model="analog", trials=4,
+              track_unshared=False, draws=draws, device="cpu")
+    sim = BankSim(**kw)
+    copies, got = zip(*(_staged_apa(sim, n_dst, restored, seed)
+                        for seed in (1, 2)))
+    fresh = []
+    for k, seed in enumerate((1, 2)):
+        cold = BankSim(**kw)
+        cold._trial = k                 # the k-th APA's noise stream
+        fresh.append(_staged_apa(cold, n_dst, restored, seed))
+    assert copies[1] == copies[0] - 1 == fresh[1][0] - 1
+    for g, (_c, want) in zip(got, fresh, strict=True):
+        for g_side, w_side in zip(g, want, strict=True):
+            assert np.array_equal(g_side, w_side)
