@@ -211,7 +211,8 @@ ONE_BIT_OPS_PER_S = 8 * INT8_OPS_PER_S
 #: of the bf16 attention kernel
 BF16_OPS_PER_S = 989e12
 KERNEL_SOURCES = ("senseamp", "bitwise", "bitserial", "popcount_gemm",
-                  "flash_attention", "flash_attention_bwd", "moe_grouped")
+                  "flash_attention", "flash_attention_bwd", "moe_grouped",
+                  "ssd")
 #: the grouped expert kernel's shapes at Nemotron 3 Nano's widths (D 2688,
 #: F 1856, 128 experts, top 6): tokens routed at random (a decode step at
 #: 16 slots, a 4,096-token prefill, a 256-token prefill) and 64 tokens
@@ -222,6 +223,12 @@ MOE_SHAPES = {"decode": (16, 0.0), "prefill": (4096, 0.0),
 #: the same float32 sums, summed in another order, to bf16 twice (readings
 #: 0.0026-0.0051 on an H100)
 MOE_TOL = 1e-2
+#: the Mamba-2 mixer kernels' shapes at Nemotron 3 Nano's widths (64 heads
+#: of 64 in 8 groups, state 128, chunk 128): (rows, tokens)
+SSD_SHAPES = {"s4096": (1, 4096), "s1024": (1, 1024), "b4_s256": (4, 256)}
+#: the kernels against the plain version, of the largest output (bf16):
+#: three roundings to bf16 after float32 sums taken in another order
+SSD_TOL = 2e-2
 #: the served model and engine (src/repro/configs/qwen3_4b.py, uncut)
 SERVE_ARCH, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = "qwen3-4b", 4, 4096, 32
 #: prompt lengths are drawn from this range (numpy default_rng(0))
@@ -722,10 +729,10 @@ class Counts:
     each path's wall time (host clock from the reset to the synchronize
     of the read)."""
 
-    def __init__(self, S, BW, BS, PG, FA, MG):
+    def __init__(self, S, BW, BS, PG, FA, MG, SD):
         self.S = S
         self.dicts = (BW.launches, BS.launches, PG.launches, FA.launches,
-                      MG.launches)
+                      MG.launches, SD.launches)
         self.by_path: dict[str, dict[str, int]] = {}
         self.wall_s: dict[str, float] = {}
         self._t0 = 0.0
@@ -1766,6 +1773,162 @@ def check_moe_grouped(MG) -> list[dict]:
     return rows
 
 
+def _ssd_cost(cfg, b: int, s: int) -> tuple[float, float]:
+    """(bytes, float32 operations) of one chunked mixer call: the
+    projection read once, the output, the final state and the conv window
+    written once, the parameters read once; the operations are the plain
+    version's four products (``C Bᵀ``, ``(C Bᵀ ⊙ L)(x·dt)``, ``Bᵀ (x·w)``,
+    ``C · prev``), two a multiply-add."""
+    nh, g, n, hd = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state, \
+        cfg.ssm_head_dim
+    di, q = cfg.d_inner, min(cfg.ssm_chunk, s)
+    cd, nc = di + 2 * g * n, s // q
+    width = 2 * di + 2 * g * n + nh
+    nbytes = 2 * b * s * (width + di) + 4 * b * nh * n * hd \
+        + 2 * b * (cfg.ssm_conv - 1) * cd + 2 * (cfg.ssm_conv + 1) * cd \
+        + 2 * di + 12 * nh
+    flops = 2 * b * nc * (g * q * q * n + nh * q * q * hd
+                          + 2 * nh * q * n * hd)
+    return float(nbytes), float(flops)
+
+
+def check_ssd(SD) -> list[dict]:
+    """The Mamba-2 mixer's chunked kernels (``kernels/ssd.py``) at each
+    :data:`SSD_SHAPES` shape of Nemotron 3 Nano, bf16: against the plain
+    version within :data:`SSD_TOL` of the largest output (the state within
+    1e-4, the conv window exact); the kernels' time (CUDA events), their
+    launches a call (the wrapper's count and the profiler's device
+    kernels), their bound (:func:`_ssd_cost`: bytes at 3.35 TB/s, float32
+    operations at 67 TFLOP/s) and the plain version's time.  Then the
+    served model's greedy tokens with the kernels against the plain
+    version (:func:`_ssd_tokens`).  Each shape is printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as SSM
+    cfg = get_config("nemotron-3-nano-30b-a3b")
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    p = SSM.init_ssm(gen, cfg)
+    rows = []
+    for tag, (b, s) in SSD_SHAPES.items():
+        u = torch.randn((b, s, cfg.d_model), generator=gen,
+                        device="cuda").bfloat16()
+        proj = u @ p["w_in"]
+        lens = torch.randint(s // 2, s + 1, (b,), generator=gen,
+                             device="cuda") if b > 1 else None
+        valid = None if lens is None else \
+            torch.arange(s, device="cuda")[None] < lens[:, None]
+        caches = []
+        for _ in range(2):
+            c = SSM.init_ssm_cache(cfg, b + 2, "cuda")
+            c["rows"] = torch.arange(b, device="cuda") + 2
+            caches.append(c)
+        want = SD.ssd_mixer_plain(p, cfg, proj, caches[0], valid)
+        before = SD.launches["ssd"]
+        got = SD.ssd_mixer_cuda(p, cfg, proj, caches[1], valid)
+        torch.cuda.synchronize()
+        per_call = SD.launches["ssd"] - before
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        st = float((caches[1]["state"] - caches[0]["state"]).abs().max()
+                   / caches[0]["state"].abs().max())
+        assert err <= SSD_TOL and st <= 1e-4, (tag, err, st)
+        assert torch.equal(caches[1]["conv"], caches[0]["conv"]), tag
+        assert per_call == SD.KERNELS <= 6, per_call
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            SD.ssd_mixer_cuda(p, cfg, proj, caches[1], valid)
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()}
+        assert sum(c for k, c in kernels.items()
+                   if k.startswith("ssd_")) == per_call, kernels
+        nbytes, flops = _ssd_cost(cfg, b, s)
+        bound_ms, bound_by = _bound(nbytes, flops)
+        ms = _time_ms(lambda: SD.ssd_mixer_cuda(p, cfg, proj, caches[1],
+                                                valid))
+        plain_ms = _time_ms(lambda: SD.ssd_mixer_plain(p, cfg, proj,
+                                                       caches[0], valid),
+                            reps=3)
+        row = {"name": "ssd", "tag": tag,
+               "shape": {"rows": b, "tokens": s, "heads": cfg.ssm_heads,
+                         "head_dim": cfg.ssm_head_dim,
+                         "groups": cfg.ssm_groups, "state": cfg.ssm_state,
+                         "chunk": cfg.ssm_chunk,
+                         "valid": None if lens is None else lens.tolist()},
+               "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
+               "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
+               "share_of_bound": round(bound_ms / ms, 4),
+               "vs_plain": round(plain_ms / ms, 2), "bytes": nbytes,
+               "flops": flops, "rel_err": err, "state_rel_err": st,
+               "launches_per_call": per_call, "device_kernels": kernels,
+               "library_ms": None}
+        print(f"[ssd] {tag}: kernel {row['ms']} ms ({row['share_of_bound']}"
+              f" of its bound {row['bound_ms']} ms, {bound_by}), plain "
+              f"{row['plain_ms']} ms ({row['vs_plain']}x), {per_call} "
+              f"launches a call (device kernels {kernels}) at "
+              f"{row['shape']}; kernel vs plain {err}, state {st}",
+              flush=True)
+        rows.append(row)
+        del u, proj, want, got, caches
+    rows[0]["tokens"] = _ssd_tokens(SD)
+    return rows
+
+
+def _ssd_tokens(SD) -> dict:
+    """Nemotron 3 Nano cut to its first 6 layers (up to the first attention
+    layer), float32 with TF32 off, random weights at full width, behind a
+    ``ServeEngine`` of ``SERVE_SLOTS`` x ``SERVE_MAX_LEN``: ``SERVE_SLOTS``
+    greedy requests of ``GRAPH_STEPS`` tokens served with the kernels, then
+    again by a fresh engine with the chunked mixer's CUDA call pointed at
+    the plain version.  The tokens are held equal, the prefill logits
+    within ``BATCHED_F32_REL`` of the largest."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("nemotron-3-nano-30b-a3b")
+    n = cfg.layer_pattern.index("*") + 1
+    cut = cfg.replace(n_layers=n, layer_pattern=cfg.layer_pattern[:n],
+                      param_dtype="float32", compute_dtype="float32")
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(34),
+                           cut)
+    rng = np.random.default_rng(35)
+    prompts = [rng.integers(2, cut.vocab, int(k)).tolist() for k in
+               rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
+                            SERVE_SLOTS)]
+    runs, kernel_call = [], SD.ssd_mixer_cuda
+    try:
+        for fn in (kernel_call, SD.ssd_mixer_plain):
+            SD.ssd_mixer_cuda = fn
+            eng = ServeEngine(cut, params, n_slots=SERVE_SLOTS,
+                              max_len=SERVE_MAX_LEN)
+            before = SD.launches["ssd"]
+            rids = [eng.submit(q, max_new_tokens=GRAPH_STEPS)
+                    for q in prompts]
+            eng.keep_logits = set(rids)
+            done = {r.rid: r for r in eng.run()}
+            runs.append(([done[r].out_tokens for r in rids],
+                         [eng.logits[r][0] for r in rids],
+                         SD.launches["ssd"] - before))
+            del eng
+    finally:
+        SD.ssd_mixer_cuda = kernel_call
+    (tk, lk, nk), (tp, lp, npl) = runs
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(lk, lp, strict=True))
+    same = sum(a == b for a, b in zip(tk, tp, strict=True))
+    print(f"[ssd] served tokens, {n}-layer float32 cut: kernels ({nk} "
+          f"launches) against the plain version ({npl}): tokens equal on "
+          f"{same} of {len(tk)} requests, prefill logits {rel} of the "
+          f"largest", flush=True)
+    assert nk > 0 == npl, (nk, npl)
+    assert same == len(tk) and rel <= BATCHED_F32_REL, (same, rel)
+    del params
+    torch.cuda.empty_cache()
+    return {"layers": n, "requests": len(tk), "tokens_equal_requests": same,
+            "rel_logit_diff": rel, "launches": [nk, npl]}
+
+
 def _ptxas_summary(log: str) -> list[str]:
     """'<kernel>: N registers, S bytes smem, spills' from ``-Xptxas=-v``."""
     out, name, spill = [], "", ""
@@ -2128,8 +2291,11 @@ def _serve_arch(counts: Counts, card: str, arch: str) -> tuple[dict, dict]:
     # a dropless MoE layer: one grouped product a prefill and a step
     grouped = _dropless_layers(cfg) * (n_pre + n_dec)
     assert c["moe_grouped"] == grouped, (c, grouped)
+    # a Mamba-2 mixer: the chunked kernels once a prefill forward
+    ssd = _ssd_launches(cfg, n_pre)
+    assert c["ssd"] == ssd, (c, ssd)
     assert sum(c.values()) == c["flash_attention"] \
-        + c["flash_attention_combine"] + grouped, c
+        + c["flash_attention_combine"] + grouped + ssd, c
     assert len(done) == ARCH_REQUESTS and all(
         len(r.out_tokens) == ARCH_NEW for r in done), \
         [len(r.out_tokens) for r in done]
@@ -2216,6 +2382,14 @@ def _serve_arch(counts: Counts, card: str, arch: str) -> tuple[dict, dict]:
           f"{agree}/{total}", flush=True)
     _print_graph(arch, out["graph_vs_eager"], walls)
     return out, params
+
+
+def _ssd_launches(cfg, forwards: int) -> int:
+    """The Mamba-2 mixer kernels' launches in ``forwards`` forwards: one
+    chunked call a forward in each layer with a Mamba-2 mixer."""
+    from repro_torch.kernels.ssd import KERNELS
+    return KERNELS * forwards * sum(k in ("ssm", "hybrid")
+                                    for k in cfg.layer_kinds)
 
 
 def _dropless_layers(cfg) -> int:
@@ -2307,8 +2481,9 @@ def _f32_parity(counts: Counts, arch: str, cfg, params) -> dict:
     got = T.forward(card, cut, {k: v.cuda() for k, v in batch.items()})
     c = counts.read(f"f32_{arch}")
     attn, grouped = cut.n_attention_layers, _dropless_layers(cut)
+    ssd = _ssd_launches(cut, 1)
     assert c["flash_attention"] == attn and c["moe_grouped"] == grouped \
-        and sum(c.values()) == attn + grouped, c
+        and c["ssd"] == ssd and sum(c.values()) == attn + grouped + ssd, c
     got = got.cpu()
     del card
     want = T.forward(_cut(params, cut, "cpu"), cut, batch)
@@ -3142,6 +3317,7 @@ def main() -> int:
     from repro_torch.kernels import moe_grouped as MG
     from repro_torch.kernels import popcount_gemm as PG
     from repro_torch.kernels import senseamp as S
+    from repro_torch.kernels import ssd as SD
     from repro_torch.pud.engine import PudEngine
 
     times: dict[str, float] = {}
@@ -3156,7 +3332,7 @@ def main() -> int:
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         list(pool.map(build.load, KERNEL_SOURCES))
     for name in ("popcount_gemm", "flash_attention", "flash_attention_bwd",
-                 "moe_grouped"):
+                 "moe_grouped", "ssd"):
         for line in _ptxas_summary(build.BUILD_LOGS.get(name, "")):
             print(f"[ptxas] {line}", flush=True)
     t0 = _phase("build", t0, times)
@@ -3190,10 +3366,11 @@ def main() -> int:
           f"{bwd_row['library_cold_ms']}), bound {bwd_row['bound_ms']} ms "
           f"({bwd_row['bound_by']}) at {bwd_row['shape']}", flush=True)
     moe_rows = check_moe_grouped(MG)
+    ssd_rows = check_ssd(SD)
     t0 = _phase("kernel_vs_plain", t0, times)
 
     # ---- main path: the launch count covers exactly these calls ----
-    counts = Counts(S, BW, BS, PG, FA, MG)
+    counts = Counts(S, BW, BS, PG, FA, MG, SD)
     counts.reset()
     rates, peak = {}, {}
     for op in charz.OPS:
@@ -3323,7 +3500,8 @@ def main() -> int:
     t0 = _phase("roofline", t0, times)
     print("[times] " + json.dumps(times), flush=True)
 
-    rows = [row, *bit_rows, fa_row, merge_row, bwd_row, *moe_rows]
+    rows = [row, *bit_rows, fa_row, merge_row, bwd_row, *moe_rows,
+            *ssd_rows]
     for r in rows:
         r["launches"] = counts.total(r["name"])
         r["launches_by_path"] = {p: c[r["name"]]

@@ -55,7 +55,8 @@ The spans of one ``ServeEngine.run`` (``serve/engine.py``)::
                                   samples (ends at that host read)
         moe.route, moe.dispatch,  each MoE layer of an eager call
         moe.experts, moe.combine  (models/moe.py)
-        ssm.scan                  each chunked SSD (models/ssm.py)
+        ssm.scan                  each chunked Mamba-2 mixer call
+                                  (kernels/ssd.py), kernels or plain
       serve.decode                one decode step, to its host read of the
                                   greedy tokens
 
@@ -63,11 +64,12 @@ A decode step replayed as a CUDA graph opens no span inside it (on the
 CPU the step runs eagerly and opens the layers' spans too).  Counters:
 ``serve.prompt_tokens``, ``serve.prefill_forwards`` (one a prefill
 forward), ``serve.decode_tokens`` (tokens the decode steps emitted),
-``serve.steps``, and, read once per run from the grouped expert
-product's device ring (``kernels/moe_grouped.py``, which graph replays
-write too), ``moe.launches``, ``moe.experts`` and ``moe.rows`` summed, with
-each launch's ``(experts with rows, rows)`` under the record's
-``lists["moe.launch"]`` (:func:`note`).
+``serve.steps``, ``ssm.scan_kernel`` / ``ssm.scan_plain`` (one a chunked
+mixer call, by the path it took), and, read once per run from the grouped
+expert product's device ring (``kernels/moe_grouped.py``, which graph
+replays write too), ``moe.launches``, ``moe.experts`` and ``moe.rows``
+summed, with each launch's ``(experts with rows, rows)`` under the
+record's ``lists["moe.launch"]`` (:func:`note`).
 """
 from __future__ import annotations
 

@@ -167,7 +167,8 @@ def test_batched_prefill_equals_one_request_a_forward():
 
 def test_prefill_forwards_are_counted_once_a_forward():
     """``serve.prefill_forwards`` counts the forwards (one a group of
-    ``prefill_groups``, one ``serve.prefill`` span each); the prompt tokens
+    ``prefill_groups``, one ``serve.prefill`` span each), and
+    ``ssm.scan_plain`` the chunked mixer calls of each; the prompt tokens
     are those of the requests, batched or not."""
     cfg = small()
     p = params(cfg, seed=7)
@@ -180,6 +181,10 @@ def test_prefill_forwards_are_counted_once_a_forward():
         n = len(eng.prefill_groups)
         assert rec["counts"]["serve.prefill_forwards"] == n
         assert _named(prof, "serve.prefill") == {"serve.prefill": n}
+        # one chunked mixer call a Mamba-2 layer a forward, plain on the CPU
+        assert rec["counts"]["ssm.scan_plain"] \
+            == cfg.layer_kinds.count("ssm") * n
+        assert "ssm.scan_kernel" not in rec["counts"]
         counts.append(rec["counts"])
     assert counts[0]["serve.prompt_tokens"] == sum(WAVE) \
         == counts[1]["serve.prompt_tokens"]
@@ -436,7 +441,8 @@ def test_spans_and_counters_of_one_run():
     decode steps (3 with two slots busy, then 3 alone); on the CPU every
     decode step runs eagerly, so each MoE layer opens its spans in every
     prefill forward and every step, and each step's grouped product takes
-    both slots' rows."""
+    both slots' rows; each SSM layer of a prefill forward takes the plain
+    chunked path on the CPU (``ssm.scan_plain``, no ``ssm.scan_kernel``)."""
     cfg = small()
     eng = ServeEngine(cfg, params(cfg), n_slots=2, max_len=64, device="cpu")
     for n in (10, 20, 30):
@@ -462,6 +468,7 @@ def test_spans_and_counters_of_one_run():
         "serve.prompt_tokens": 60, "serve.prefill_forwards": prefills,
         "serve.steps": steps,
         "serve.decode_tokens": 9, "moe.launches": n_moe * eng_calls,
+        "ssm.scan_plain": n_ssm * prefills,
         "moe.rows": n_moe * pairs * (2 * 32 + 32 + 2 * steps),
         "moe.experts": sum(e for e, _r in rec["lists"]["moe.launch"])}
     assert len(rec["lists"]["moe.launch"]) == n_moe * eng_calls

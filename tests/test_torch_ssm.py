@@ -22,6 +22,7 @@ from repro import configs as RC
 from repro.models import ssm as RSSM
 from repro.models.config import ModelConfig as RModelConfig
 from repro_torch import configs as TC
+from repro_torch.kernels import ssd as TSSD
 from repro_torch.models import ssm as TSSM
 from repro_torch.models.config import ModelConfig as TModelConfig
 
@@ -74,7 +75,7 @@ def test_segsum_matches_reference():
     x = np.random.default_rng(0).normal(-0.3, 0.2, (2, 3, 8)).astype(
         np.float32)
     want = np.asarray(RSSM._segsum(jnp.asarray(x)))
-    got = TSSM._segsum(torch.from_numpy(x)).numpy()
+    got = TSSD._segsum(torch.from_numpy(x)).numpy()
     assert np.array_equal(np.isinf(got), np.isinf(want))
     fin = np.isfinite(want)
     np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-6)
@@ -92,7 +93,7 @@ def test_ssd_chunked_matches_reference(s, chunk):
               for _ in range(2))
     want_y, want_st = RSSM._ssd_chunked(*map(jnp.asarray,
                                              (x, dtv, a_log, bm, cm)), chunk)
-    got_y, got_st = TSSM._ssd_chunked(*map(torch.from_numpy,
+    got_y, got_st = TSSD._ssd_chunked(*map(torch.from_numpy,
                                            (x, dtv, a_log, bm, cm)), chunk)
     _close(got_y, want_y, 1e-5)
     _close(got_st, want_st, 1e-5)
