@@ -136,7 +136,9 @@ Phases:
     each family cut to 2 layers in float32, card against CPU (≤ 1e-4);
     Nemotron 3 Nano's batched prefill of one admission wave against one
     request a forward (``[batched]``: prefill logits, the first 16
-    tokens; at bf16 printed, cut to 6 layers in float32 held);
+    tokens; at bf16 printed, cut to 6 layers in float32 held); Granite
+    4.0-H Small the same, its float32 cuts its first Mamba-2 and its first
+    attention layer, each with its MoE;
     llama-3.2-vision-90b cut to 10 layers (every width kept): ``forward``
     with 1024 image embeddings over a 512-token prompt, then
     ``decode_step`` with them — the prompt eagerly, then the steps as
@@ -219,6 +221,11 @@ KERNEL_SOURCES = ("senseamp", "bitwise", "bitserial", "popcount_gemm",
 #: skewed onto 3 experts: (tokens, skew)
 MOE_SHAPES = {"decode": (16, 0.0), "prefill": (4096, 0.0),
               "short": (256, 0.0), "skewed": (64, 10.0)}
+#: the SwiGLU grouped kernel's shapes at Granite 4.0-H Small's widths (D
+#: 4096, F 768, 72 experts, top 10): a decode step at 16 slots (160 rows),
+#: a 4,096-token prefill (40,960 rows) and 64 tokens skewed onto 3 experts
+MOE_SWIGLU_SHAPES = {"decode": (16, 0.0), "prefill": (4096, 0.0),
+                     "skewed": (64, 10.0)}
 #: the grouped kernel against its twin, of the largest output: both round
 #: the same float32 sums, summed in another order, to bf16 twice (readings
 #: 0.0026-0.0051 on an H100)
@@ -226,6 +233,8 @@ MOE_TOL = 1e-2
 #: the Mamba-2 mixer kernels' shapes at Nemotron 3 Nano's widths (64 heads
 #: of 64 in 8 groups, state 128, chunk 128): (rows, tokens)
 SSD_SHAPES = {"s4096": (1, 4096), "s1024": (1, 1024), "b4_s256": (4, 256)}
+#: Granite 4.0-H Small's one group of 128 heads (state 128, chunk 256)
+SSD_ONE_GROUP = {"granite_s4096": (1, 4096)}
 #: the kernels against the plain version, of the largest output (bf16):
 #: three roundings to bf16 after float32 sums taken in another order
 SSD_TOL = 2e-2
@@ -238,7 +247,7 @@ SERVE_PROMPTS = (256, 2048)
 #: (the last at temperature 1) and new tokens each
 ARCH_SERVE, ARCH_REQUESTS, ARCH_NEW = (
     "qwen2-moe-a2.7b", "hymba-1.5b", "mamba2-780m", "musicgen-medium",
-    "nemotron-3-nano-30b-a3b"), 6, 16
+    "nemotron-3-nano-30b-a3b", "granite-4.0-h-small"), 6, 16
 #: decode steps of the graph-against-eager check of each served model
 GRAPH_STEPS = 16
 #: float32 prefill logits of a batched forward against one request a
@@ -1709,23 +1718,41 @@ def _check_combine(FA, args, split, dec) -> dict:
 
 
 def check_moe_grouped(MG) -> list[dict]:
-    """The grouped expert kernel (``kernels/moe_grouped.py``) at each
-    :data:`MOE_SHAPES` shape: the wrapper against its twin within
-    :data:`MOE_TOL` of the largest output; its time, the twin's, the least time from its bytes and operations
-    (``bench/roofline_moe.py``: the weights of each expert with rows once,
-    rows in and out, ``4 · rows · D · F`` operations) and
-    ``torch._grouped_mm``'s (up, relu², down; where the card's torch has
-    it, held to the twin too), CUDA events.  Each shape is printed."""
-    from bench.roofline_moe import bound_s, grouped_launch
-    e, d, f, k = 128, 2688, 1856, 6
-    g = torch.Generator(device="cuda").manual_seed(21)
-    w_up = (torch.randn(e, f, d, device="cuda", generator=g)
-            / d ** 0.5).bfloat16()
+    """The grouped expert kernels (``kernels/moe_grouped.py``): relu² at
+    each :data:`MOE_SHAPES` shape of Nemotron 3 Nano, SwiGLU at each
+    :data:`MOE_SWIGLU_SHAPES` shape of Granite 4.0-H Small (:func:`_moe_rows`).
+    Each shape is printed."""
+    from bench import roofline_moe, roofline_moe_swiglu
+    return _moe_rows(MG, "relu2", (128, 2688, 1856, 6), MOE_SHAPES,
+                     roofline_moe, 21) \
+        + _moe_rows(MG, "swiglu", (72, 4096, 768, 10), MOE_SWIGLU_SHAPES,
+                    roofline_moe_swiglu, 22)
+
+
+def _moe_rows(MG, kind: str, widths, shapes: dict, roofline,
+              seed: int) -> list[dict]:
+    """One grouped kernel at ``widths`` (E, D, F, top k) and each of
+    ``shapes``: the wrapper against its twin within :data:`MOE_TOL` of the
+    largest output; its time, the twin's, the least time from its bytes
+    and operations (``roofline``: ``bench/roofline_moe.py`` or
+    ``bench/roofline_moe_swiglu.py``: the weights of each expert with rows
+    once, rows in and out, ``4`` or ``6 · rows · D · F`` operations) and
+    ``torch._grouped_mm``'s (up, the activation, down; where the card's
+    torch has it, held to the twin too), CUDA events."""
+    e, d, f, k = widths
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    glu = kind == "swiglu"
+    w_up = (torch.randn(e, 2 * f if glu else f, d, device="cuda",
+                        generator=g) / d ** 0.5).bfloat16()
     w_down = (torch.randn(e, d, f, device="cuda", generator=g)
               / f ** 0.5).bfloat16()
+    kernel, plain = (MG.grouped_experts_swiglu,
+                     MG.grouped_experts_swiglu_plain) if glu else \
+        (MG.grouped_experts, MG.grouped_experts_plain)
+    name = "moe_grouped_swiglu" if glu else "moe_grouped"
     library = getattr(torch, "_grouped_mm", None)
     rows = []
-    for tag, (n, skew) in MOE_SHAPES.items():
+    for tag, (n, skew) in shapes.items():
         logits = torch.randn(n, e, device="cuda", generator=g)
         logits[:, :3] += skew
         idx = torch.topk(logits, k, -1).indices.reshape(-1)
@@ -1733,40 +1760,46 @@ def check_moe_grouped(MG) -> list[dict]:
             .scatter_add_(0, idx + 1, torch.ones_like(idx, dtype=torch.int32))
         off = torch.cumsum(cnt, 0, dtype=torch.int32)
         xs = torch.randn(n * k, d, device="cuda", generator=g).bfloat16()
-        want = MG.grouped_experts_plain(xs, off, w_up, w_down).float()
+        want = plain(xs, off, w_up, w_down).float()
         scale = float(want.abs().max())
-        err = float((MG.grouped_experts(xs, off, w_up, w_down).float()
+        err = float((kernel(xs, off, w_up, w_down).float()
                      - want).abs().max()) / scale
-        assert err <= MOE_TOL, (tag, err)
+        assert err <= MOE_TOL, (kind, tag, err)
         used = int((cnt[1:] > 0).sum())
-        nbytes, nops = grouped_launch(used, n * k, d, f)
+        nbytes, nops = roofline.grouped_launch(used, n * k, d, f)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        row = {"name": "moe_grouped", "tag": tag,
+        row = {"name": name, "tag": tag,
                "shape": {"tokens": n, "rows": n * k, "experts_with_rows":
                          used, "D": d, "F": f, "E": e, "skew": skew},
-               "ms": round(_time_ms(lambda: MG.grouped_experts(
+               "ms": round(_time_ms(lambda: kernel(
                    xs, off, w_up, w_down)), 6),
-               "plain_ms": round(_time_ms(lambda: MG.grouped_experts_plain(
+               "plain_ms": round(_time_ms(lambda: plain(
                    xs, off, w_up, w_down), reps=5), 6),
-               "bound_ms": round(bound_s(nbytes, nops) * 1e3, 6),
+               "bound_ms": round(roofline.bound_s(nbytes, nops) * 1e3, 6),
                "bound_by": "bytes" if t_bytes >= nops / BF16_OPS_PER_S * 1e3
                else "operations",
                "rel_err": err, "library_ms": None}
+        row["share_of_bound"] = round(row["bound_ms"] / row["ms"], 4)
         if library is not None:
             def lib():
                 h = library(xs, w_up.transpose(1, 2), offs=off[1:])
-                return library(torch.relu(h).square(),
-                               w_down.transpose(1, 2), offs=off[1:])
+                if glu:
+                    gate, up = h.chunk(2, -1)
+                    h = torch.nn.functional.silu(gate) * up
+                else:
+                    h = torch.relu(h).square()
+                return library(h, w_down.transpose(1, 2), offs=off[1:])
             try:
                 row["library_rel_err"] = float(
                     (lib().float() - want).abs().max()) / scale
                 row["library_ms"] = round(_time_ms(lib), 6)
             except RuntimeError as exc:
                 row["library_error"] = str(exc).splitlines()[0][:200]
-        print(f"[moe_grouped] {tag}: kernel {row['ms']} ms, plain "
-              f"{row['plain_ms']} ms, library {row['library_ms']} ms, bound "
-              f"{row['bound_ms']} ms ({row['bound_by']}) at {row['shape']}; "
-              f"kernel vs plain {err}, library vs plain "
+        print(f"[{name}] {tag}: kernel {row['ms']} ms ({row['share_of_bound']}"
+              f" of its bound), plain {row['plain_ms']} ms, library "
+              f"{row['library_ms']} ms, bound {row['bound_ms']} ms "
+              f"({row['bound_by']}) at {row['shape']}; kernel vs plain "
+              f"{err}, library vs plain "
               f"{row.get('library_rel_err', row.get('library_error'))}",
               flush=True)
         rows.append(row)
@@ -1794,7 +1827,8 @@ def _ssd_cost(cfg, b: int, s: int) -> tuple[float, float]:
 
 def check_ssd(SD) -> list[dict]:
     """The Mamba-2 mixer's chunked kernels (``kernels/ssd.py``) at each
-    :data:`SSD_SHAPES` shape of Nemotron 3 Nano, bf16: against the plain
+    :data:`SSD_SHAPES` shape of Nemotron 3 Nano and the
+    :data:`SSD_ONE_GROUP` shape of Granite 4.0-H Small, bf16: against the plain
     version within :data:`SSD_TOL` of the largest output (the state within
     1e-4, the conv window exact); the kernels' time (CUDA events), their
     launches a call (the wrapper's count and the profiler's device
@@ -1806,11 +1840,17 @@ def check_ssd(SD) -> list[dict]:
 
     from repro_torch.configs import get_config
     from repro_torch.models import ssm as SSM
-    cfg = get_config("nemotron-3-nano-30b-a3b")
     gen = torch.Generator(device="cuda").manual_seed(33)
-    p = SSM.init_ssm(gen, cfg)
     rows = []
-    for tag, (b, s) in SSD_SHAPES.items():
+    cases = [("nemotron-3-nano-30b-a3b", tag, shape)
+             for tag, shape in SSD_SHAPES.items()]
+    cases += [("granite-4.0-h-small", tag, shape)
+              for tag, shape in SSD_ONE_GROUP.items()]
+    cfg = p = None
+    for arch, tag, (b, s) in cases:
+        if cfg is None or cfg.name != arch:
+            cfg = get_config(arch)
+            p = SSM.init_ssm(gen, cfg)
         u = torch.randn((b, s, cfg.d_model), generator=gen,
                         device="cuda").bfloat16()
         proj = u @ p["w_in"]
@@ -2153,12 +2193,11 @@ def _batched_f32(cfg, params, prompts, arch: str) -> dict:
     from repro_torch.serve.engine import ServeEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    n = cfg.layer_pattern.index("*") + 1
-    cut = cfg.replace(n_layers=n, layer_pattern=cfg.layer_pattern[:n],
-                      param_dtype="float32", compute_dtype="float32")
-    eng = ServeEngine(cut, _cut(params, cut, "cuda"), n_slots=SERVE_SLOTS,
-                      max_len=SERVE_MAX_LEN)
-    r = _batched_vs_single(eng, prompts, f"{arch} float32, {n} layers")
+    cut, keep = _f32_cut(cfg)
+    eng = ServeEngine(cut, _cut(params, cut, "cuda", keep),
+                      n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    r = _batched_vs_single(eng, prompts,
+                           f"{arch} float32, {cut.n_layers} layers")
     del eng
     torch.cuda.empty_cache()
     assert r["tokens_equal_requests"] == r["requests"], r
@@ -2289,8 +2328,10 @@ def _serve_arch(counts: Counts, card: str, arch: str) -> tuple[dict, dict]:
     assert c["flash_attention"] == attn * (n_pre + n_dec), (c, n_pre, n_dec)
     assert c["flash_attention_combine"] == merges, (c, merges)
     # a dropless MoE layer: one grouped product a prefill and a step
-    grouped = _dropless_layers(cfg) * (n_pre + n_dec)
-    assert c["moe_grouped"] == grouped, (c, grouped)
+    per_call = _grouped_products(cfg)
+    for name, n in per_call.items():
+        assert c[name] == n * (n_pre + n_dec), (c, name, n, n_pre, n_dec)
+    grouped = sum(per_call.values()) * (n_pre + n_dec)
     # a Mamba-2 mixer: the chunked kernels once a prefill forward
     ssd = _ssd_launches(cfg, n_pre)
     assert c["ssd"] == ssd, (c, ssd)
@@ -2392,13 +2433,29 @@ def _ssd_launches(cfg, forwards: int) -> int:
                                     for k in cfg.layer_kinds)
 
 
-def _dropless_layers(cfg) -> int:
-    """The layers whose MoE takes the dropless dispatch (one grouped expert
-    product a call)."""
-    if not cfg.moe or cfg.capacity_factor > 0:
-        return 0
-    return sum(k == "moe" for k in cfg.layer_kinds) if cfg.layer_pattern \
-        else cfg.n_layers
+def _grouped_products(cfg) -> dict[str, int]:
+    """The grouped expert products of one forward, by kernel: one a layer
+    whose MoE takes the dropless dispatch, ``moe_grouped_swiglu`` for
+    SwiGLU experts, ``moe_grouped`` for relu²."""
+    n = 0 if not cfg.moe or cfg.capacity_factor > 0 else cfg.n_moe_layers
+    swiglu = cfg.mlp_act != "relu2"
+    return {"moe_grouped": 0 if swiglu else n,
+            "moe_grouped_swiglu": n if swiglu else 0}
+
+
+def _f32_cut(cfg):
+    """A pattern model cut for a float32 check: up to its first attention
+    layer (every kind of layer once at least) or, where every layer also
+    holds a MoE (too large in float32 for six of them beside the bf16
+    model), its first Mamba-2 and its first attention layer.  -> (the cut
+    config, the blocks it keeps)."""
+    from repro_torch.models.config import option
+    a = cfg.layer_pattern.index("*")
+    keep = [cfg.layer_pattern.index("M"), a] \
+        if option(cfg, "layer_ffn") else list(range(a + 1))
+    return cfg.replace(n_layers=len(keep), layer_pattern="".join(
+        cfg.layer_pattern[i] for i in keep), param_dtype="float32",
+        compute_dtype="float32"), keep
 
 
 def _moe_no_drop(cfg, params, prompts) -> dict:
@@ -2436,18 +2493,20 @@ def _moe_no_drop(cfg, params, prompts) -> dict:
             agree / total, "tokens": total}
 
 
-def _cut(tree, cfg, dev):
+def _cut(tree, cfg, dev, blocks=None):
     """The first layers of a parameter tree, as float32 on ``dev``: the
-    self blocks and cross blocks that ``cfg`` (the cut config) has."""
+    self blocks and cross blocks that ``cfg`` (the cut config) has, or the
+    self blocks at the indices ``blocks``."""
     from repro_torch.models.transformer import n_cross_blocks
     n_cross = n_cross_blocks(cfg)
-    keep = {"blocks": cfg.n_layers - n_cross, "cross_blocks": n_cross}
+    keep = {"blocks": range(cfg.n_layers - n_cross) if blocks is None
+            else blocks, "cross_blocks": range(n_cross)}
 
     def walk(node, key=None):
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, list):
-            return [walk(v) for v in node[:keep[key]]]
+            return [walk(node[i]) for i in keep[key]]
         return node.to(dev, torch.float32)
 
     return walk(tree)
@@ -2463,30 +2522,30 @@ def _f32_parity(counts: Counts, arch: str, cfg, params) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kw = {"cross_attn_every": 2} if cfg.cross_attn_every else {}
-    n = ARCH_F32_LAYERS
+    keep = None
     if cfg.layer_pattern:
-        # up to the first attention layer: every kind of layer once at least
-        n = cfg.layer_pattern.index("*") + 1
-        kw["layer_pattern"] = cfg.layer_pattern[:n]
-    cut = cfg.replace(n_layers=n, param_dtype="float32",
-                      compute_dtype="float32", **kw)
+        cut, keep = _f32_cut(cfg)
+    else:
+        cut = cfg.replace(n_layers=ARCH_F32_LAYERS, param_dtype="float32",
+                          compute_dtype="float32", **kw)
     rng = np.random.default_rng(1)
     batch = {"tokens": torch.from_numpy(rng.integers(
         2, cut.vocab, (1, ARCH_F32_SEQ)))}
     if cut.cross_attn_every:
         batch["image_embeds"] = torch.from_numpy(rng.normal(
             0, 1, (1, cut.n_image_tokens, cut.d_model)).astype(np.float32))
-    card = _cut(params, cut, "cuda")
+    card = _cut(params, cut, "cuda", keep)
     counts.reset()
     got = T.forward(card, cut, {k: v.cuda() for k, v in batch.items()})
     c = counts.read(f"f32_{arch}")
-    attn, grouped = cut.n_attention_layers, _dropless_layers(cut)
+    attn, grouped = cut.n_attention_layers, _grouped_products(cut)
     ssd = _ssd_launches(cut, 1)
-    assert c["flash_attention"] == attn and c["moe_grouped"] == grouped \
-        and c["ssd"] == ssd and sum(c.values()) == attn + grouped + ssd, c
+    assert c["flash_attention"] == attn and c["ssd"] == ssd and all(
+        c[k] == n for k, n in grouped.items()) and sum(c.values()) \
+        == attn + sum(grouped.values()) + ssd, c
     got = got.cpu()
     del card
-    want = T.forward(_cut(params, cut, "cpu"), cut, batch)
+    want = T.forward(_cut(params, cut, "cpu", keep), cut, batch)
     rel = float((got - want).abs().max() / want.abs().max())
     print(f"[serve] {arch}: 2-layer float32 forward, card (kernel) vs CPU "
           f"(plain): {rel} of the largest logit", flush=True)

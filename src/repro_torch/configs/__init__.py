@@ -26,6 +26,7 @@ ARCHS: tuple[str, ...] = (
 #: served by the port only: no reference config, no dry-run cell, no mesh
 PORT_ARCHS: tuple[str, ...] = (
     "nemotron-3-nano-30b-a3b",
+    "granite-4.0-h-small",
 )
 
 

@@ -14,6 +14,16 @@
 // down(relu(up(h))^2) is two launches: up (K = D, N = F, act = relu^2,
 // rounded once to bf16) then down (K = F, N = D, no act).
 //
+// SwiGLU experts (Granite 4.0-H) are the same two launches of a second
+// kernel, moe_grouped_swiglu_*, whose up launch reads W (E, 2F, D), the
+// published input_linear: rows 0 .. F - 1 the gate, F .. 2F - 1 the up.
+// A block of BN/2 output columns loads both halves' rows for them into
+// one BN-row operand tile (gate rows first), so one wgmma sum holds the
+// gate and the up of each column side by side, and the epilogue writes
+// silu(g) * u, rounded once to bf16.  Its down launch is the plain product
+// (act none) of w_down (E, D, F), under the same kernel's name, so that a
+// trace reads the SwiGLU product's time by that name.
+//
 // Tiles.  A block takes BM = 64 * NWG rows of one expert and BN output
 // columns (grid (ceil(N / BN), tile bound)).  Expert e has ceil(rows_e /
 // BM) tiles, in expert order; each block loads the offsets, scans the
@@ -54,8 +64,13 @@ struct Args {
   const int* offsets;         // (E + 1,)
   long long* ring;            // (ring_size, 2), or null: no record
   unsigned long long* ring_idx;
-  int ring_size, R, K, N, E, relu2;
+  int ring_size, R, K, N, E;
+  int act;                    // ACT_NONE, ACT_RELU2 or ACT_SWIGLU
 };
+
+constexpr int ACT_NONE = 0, ACT_RELU2 = 1, ACT_SWIGLU = 2;
+
+__device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -318,7 +333,9 @@ struct Plan {
   static constexpr int SMEM = STAGES * STAGE + 1024;
 };
 
-template <int NWG, int BN, int STAGES>
+// GLU: the kernel may take act = ACT_SWIGLU (the gate and the up of BN / 2
+// columns a block); false compiles the other acts alone.
+template <int NWG, int BN, int STAGES, bool GLU>
 __device__ __forceinline__ void grouped_bf16(const Args& a) {
   using P = Plan<NWG, BN, STAGES>;
   const Tile tile = locate<P::BM>(
@@ -328,11 +345,12 @@ __device__ __forceinline__ void grouped_bf16(const Args& a) {
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   unsigned char* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
 
+  const bool glu = GLU && a.act == ACT_SWIGLU;
   const int tid = threadIdx.x, wg = tid / 128;
-  const int n0 = blockIdx.x * BN;
+  const int n0 = blockIdx.x * (glu ? BN / 2 : BN);
   const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(a.a);
-  const __nv_bfloat16* W =
-      static_cast<const __nv_bfloat16*>(a.w) + (size_t)tile.e * a.N * a.K;
+  const __nv_bfloat16* W = static_cast<const __nv_bfloat16*>(a.w) +
+                           (size_t)tile.e * (glu ? 2 : 1) * a.N * a.K;
   const int ktiles = (a.K + BK - 1) / BK;
 
   // cp.async of k-tile kt into stage st: 16-byte chunks, zero past the
@@ -352,9 +370,11 @@ __device__ __forceinline__ void grouped_bf16(const Args& a) {
 #pragma unroll
     for (int u = tid; u < BN * 8; u += P::THREADS) {
       const int r = u >> 3, c = (u & 7) * 8;
-      const int n = n0 + r, k = k0 + c;
+      // SwiGLU: operand rows 0 .. BN/2 - 1 the gate's, then the up's
+      const int n = glu ? n0 + r % (BN / 2) : n0 + r, k = k0 + c;
+      const int wrow = glu && r >= BN / 2 ? a.N + n : n;
       const bool ok = n < a.N && k < a.K;
-      cp_async16(sb + sw_offset(r, c), ok ? W + (size_t)n * a.K + k : W,
+      cp_async16(sb + sw_offset(r, c), ok ? W + (size_t)wrow * a.K + k : W,
                  ok ? 16 : 0);
     }
   };
@@ -401,6 +421,25 @@ __device__ __forceinline__ void grouped_bf16(const Args& a) {
   // 8j + 2q, 8j + 2q + 1 (the m16n8 accumulator layout, per warp)
   const int lane = tid & 31, w = (tid & 127) >> 5, g = lane >> 2, q = lane & 3;
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  if (glu) {
+    // column block j of the gate (j < BN / 16) beside block j + BN / 16,
+    // the up of the same columns
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      const int col = n0 + 8 * j + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = tile.row0 + wg * 64 + 16 * w + g + 8 * h;
+        const float x0 = silu(acc[j][2 * h]) * acc[j + BN / 16][2 * h];
+        const float x1 =
+            silu(acc[j][2 * h + 1]) * acc[j + BN / 16][2 * h + 1];
+        if (row < tile.row_end && col < a.N)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * a.N + col) =
+              __floats2bfloat162_rn(x0, x1);
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = n0 + 8 * j + 2 * q;
@@ -408,7 +447,7 @@ __device__ __forceinline__ void grouped_bf16(const Args& a) {
     for (int h = 0; h < 2; ++h) {
       const int row = tile.row0 + wg * 64 + 16 * w + g + 8 * h;
       float x0 = acc[j][2 * h], x1 = acc[j][2 * h + 1];
-      if (a.relu2) {
+      if (a.act == ACT_RELU2) {
         x0 = fmaxf(x0, 0.f);
         x1 = fmaxf(x1, 0.f);
         x0 *= x0;
@@ -426,24 +465,32 @@ __device__ __forceinline__ void grouped_bf16(const Args& a) {
 // ---------------------------------------------------------------------------
 constexpr int F_BM = 64, F_BN = 64, F_BK = 16;
 
+// GLU as in grouped_bf16: a thread also sums the up of its gate's columns.
+template <bool GLU>
 __device__ __forceinline__ void grouped_f32(const Args& a) {
   const Tile tile = locate<F_BM>(
       a, blockIdx.y, a.ring != nullptr && blockIdx.x == 0 && blockIdx.y == 0);
   if (tile.e >= a.E) return;
+  constexpr int NB = GLU ? 2 : 1;
   __shared__ float sa[F_BK][F_BM + 4];
-  __shared__ float sb[F_BK][F_BN + 4];
+  __shared__ float sb[NB][F_BK][F_BN + 4];
+  const bool glu = GLU && a.act == ACT_SWIGLU;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int n0 = blockIdx.x * F_BN;
   const float* A = static_cast<const float*>(a.a);
-  const float* W = static_cast<const float*>(a.w) + (size_t)tile.e * a.N * a.K;
-  float acc[4][4] = {};
+  const float* W = static_cast<const float*>(a.w) +
+                   (size_t)tile.e * (glu ? 2 : 1) * a.N * a.K;
+  float acc[NB][4][4] = {};
   for (int k0 = 0; k0 < a.K; k0 += F_BK) {
     for (int u = tid; u < F_BK * F_BM; u += 256) {
       const int r = u / F_BK, k = u % F_BK;
       const int row = tile.row0 + r, n = n0 + r;
+      const bool ok = n < a.N && k0 + k < a.K;
       sa[k][r] = row < tile.row_end && k0 + k < a.K
                      ? A[(size_t)row * a.K + k0 + k] : 0.f;
-      sb[k][r] = n < a.N && k0 + k < a.K ? W[(size_t)n * a.K + k0 + k] : 0.f;
+      sb[0][k][r] = ok ? W[(size_t)n * a.K + k0 + k] : 0.f;
+      if (glu)
+        sb[NB - 1][k][r] = ok ? W[(size_t)(a.N + n) * a.K + k0 + k] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -451,8 +498,14 @@ __device__ __forceinline__ void grouped_f32(const Args& a) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = fmaf(sa[k][4 * ty + i], sb[k][4 * tx + j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          acc[0][i][j] = fmaf(sa[k][4 * ty + i], sb[0][k][4 * tx + j],
+                              acc[0][i][j]);
+          if (glu)
+            acc[NB - 1][i][j] = fmaf(sa[k][4 * ty + i],
+                                     sb[NB - 1][k][4 * tx + j],
+                                     acc[NB - 1][i][j]);
+        }
     __syncthreads();
   }
   float* out = static_cast<float*>(a.out);
@@ -462,10 +515,12 @@ __device__ __forceinline__ void grouped_f32(const Args& a) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + 4 * tx + j;
-      float x = acc[i][j];
-      if (a.relu2) {
+      float x = acc[0][i][j];
+      if (a.act == ACT_RELU2) {
         x = fmaxf(x, 0.f);
         x *= x;
+      } else if (glu) {
+        x = silu(x) * acc[NB - 1][i][j];
       }
       if (row < tile.row_end && col < a.N) out[(size_t)row * a.N + col] = x;
     }
@@ -483,12 +538,24 @@ using BF16 = Plan<2, 256, 4>;
 // The kernels, named without mangling so that a trace reads them by name.
 extern "C" __global__ void __launch_bounds__(BF16::THREADS)
     moe_grouped_bf16(const Args a) {
-  grouped_bf16<2, 256, 4>(a);
+  grouped_bf16<2, 256, 4, false>(a);
 }
 
 extern "C" __global__ void __launch_bounds__(256)
     moe_grouped_f32(const Args a) {
-  grouped_f32(a);
+  grouped_f32<false>(a);
+}
+
+// SwiGLU experts: the same tiles, 128 gate and 128 up columns a block in
+// the up launch (the same accumulators as one 256-column tile).
+extern "C" __global__ void __launch_bounds__(BF16::THREADS)
+    moe_grouped_swiglu_bf16(const Args a) {
+  grouped_bf16<2, 256, 4, true>(a);
+}
+
+extern "C" __global__ void __launch_bounds__(256)
+    moe_grouped_swiglu_f32(const Args a) {
+  grouped_f32<true>(a);
 }
 
 namespace {
@@ -513,11 +580,20 @@ int tiles(int rows, int experts, int bm) {
 
 // grid (column blocks, tiles): the blocks of one row tile run side by side
 // and share its rows in L2; an expert's row tiles follow one another and
-// share its weights there
-int launch(const Args& a, int bf16, cudaStream_t s) {
+// share its weights there.  glu: the SwiGLU kernels (BF16::COLS / 2
+// output columns a bf16 block under ACT_SWIGLU)
+int launch(const Args& a, int bf16, bool glu, cudaStream_t s) {
   if (!bf16) {
     const dim3 grid((a.N + F_BN - 1) / F_BN, tiles(a.R, a.E, F_BM));
-    moe_grouped_f32<<<grid, 256, 0, s>>>(a);
+    if (glu)
+      moe_grouped_swiglu_f32<<<grid, 256, 0, s>>>(a);
+    else
+      moe_grouped_f32<<<grid, 256, 0, s>>>(a);
+  } else if (glu) {
+    allow_smem<moe_grouped_swiglu_bf16>(BF16::SMEM);
+    const int cols = a.act == ACT_SWIGLU ? BF16::COLS / 2 : BF16::COLS;
+    const dim3 grid((a.N + cols - 1) / cols, tiles(a.R, a.E, BF16::BM));
+    moe_grouped_swiglu_bf16<<<grid, BF16::THREADS, BF16::SMEM, s>>>(a);
   } else {
     allow_smem<moe_grouped_bf16>(BF16::SMEM);
     const dim3 grid((a.N + BF16::COLS - 1) / BF16::COLS,
@@ -541,9 +617,31 @@ extern "C" int moe_grouped(const void* xs, const void* w_up,
                            int R, int D, int F, int E, int bf16,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Args up{xs, w_up, h, offsets, ring, ring_idx, ring_size, R, D, F, E, 1};
-  int err = launch(up, bf16, s);
+  Args up{xs, w_up, h, offsets, ring, ring_idx, ring_size, R, D, F, E,
+          ACT_RELU2};
+  int err = launch(up, bf16, false, s);
   if (err) return err;
-  Args down{h, w_down, out, offsets, nullptr, nullptr, 0, R, F, D, E, 0};
-  return launch(down, bf16, s);
+  Args down{h, w_down, out, offsets, nullptr, nullptr, 0, R, F, D, E,
+            ACT_NONE};
+  return launch(down, bf16, false, s);
+}
+
+// The SwiGLU expert MLP down(silu(g) * u) over rows sorted by expert, [g,
+// u] = xs . w_gate_up[e]^T: up (xs (R, D) through w_gate_up (E, 2F, D),
+// gate rows first, into h (R, F)) then down (h through w_down (E, D, F)
+// into out (R, D)), as moe_grouped.
+extern "C" int moe_grouped_swiglu(const void* xs, const void* w_gate_up,
+                                  const void* w_down, void* h, void* out,
+                                  const int* offsets, long long* ring,
+                                  unsigned long long* ring_idx,
+                                  int ring_size, int R, int D, int F, int E,
+                                  int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Args up{xs, w_gate_up, h, offsets, ring, ring_idx, ring_size, R, D, F, E,
+          ACT_SWIGLU};
+  int err = launch(up, bf16, true, s);
+  if (err) return err;
+  Args down{h, w_down, out, offsets, nullptr, nullptr, 0, R, F, D, E,
+            ACT_NONE};
+  return launch(down, bf16, true, s);
 }

@@ -23,8 +23,9 @@
 //          by every head of the tile; per head, C · prev scaled by
 //          exp(cs_i), plus (S ⊙ exp(cs_i - cs_j), j <= i) · (x · dt); then
 //          + D·x, rounded to the compute type.
-//   norm   one warp a (token, group): y · silu(z), rounded, then the gated
-//          RMSNorm over the group's slice, times the norm's scale, rounded.
+//   norm   one warp a (token, group) and 512 values of its slice: y ·
+//          silu(z), rounded, then the gated RMSNorm over the group's slice,
+//          times the norm's scale, rounded.
 //
 // Arithmetic: plain float32 on the CUDA cores (FMA in the products, no
 // TF32: the configuration states the SSD and its state in float32).  The
@@ -40,7 +41,8 @@
 // Shapes taken: head dim 64, state 16 or 128 (template), chunk up to 256
 // (a prompt shorter than its chunk runs as one chunk of its own length),
 // conv width 4, any number of heads and groups with a group's slice of
-// d_inner at most 4,096 wide; the wrapper refuses others.
+// d_inner at most 8,192 wide (Granite 4.0-H's one group of 128 heads); the
+// wrapper refuses others.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -742,7 +744,9 @@ __device__ void scan_body(const Args& a) {
 // norm: in place, y · silu(z), rounded, then the RMSNorm of each (token,
 // group) slice times the norm's scale.  A slice takes NW warps, each lane
 // up to NE of its values, loaded before any is used; the warps' partial
-// sums of squares are added in a fixed order.
+// sums of squares are added in a fixed order.  A block holds 8 warps, or
+// one slice's NW where it takes more (ssd_norm_wide_*: up to 16 warps, a
+// slice of 8,192).
 // ---------------------------------------------------------------------------
 constexpr int NE = 16;
 
@@ -863,6 +867,8 @@ SSD_WIDE(ssd_scan_f32_n128, scan_body, (256, 2), float, 128)
 SSD_WIDE(ssd_scan_f32_n16, scan_body, (256, 2), float, 16)
 SSD_TYPED(ssd_norm_bf16, norm_body, (256, 3), __nv_bfloat16)
 SSD_TYPED(ssd_norm_f32, norm_body, (256, 3), float)
+SSD_TYPED(ssd_norm_wide_bf16, norm_body, (512), __nv_bfloat16)
+SSD_TYPED(ssd_norm_wide_f32, norm_body, (512), float)
 extern "C" __global__ void __launch_bounds__(256) ssd_pass(const Args a) {
   pass_body(a);
 }
@@ -937,7 +943,11 @@ extern "C" int ssd_mixer(const void* proj, const void* conv_w,
                               : (n128 ? ssd_state_f32_n128 : ssd_state_f32_n16);
   const Kernel scan_k = bf16 ? (n128 ? ssd_scan_bf16_n128 : ssd_scan_bf16_n16)
                              : (n128 ? ssd_scan_f32_n128 : ssd_scan_f32_n16);
-  const Kernel norm_k = bf16 ? ssd_norm_bf16 : ssd_norm_f32;
+  // the norm's warps a block: 8, or a slice's where it takes more
+  const int nw = norm_warps(a), warps = nw > 8 ? nw : 8;
+  const Kernel norm_k =
+      nw > 8 ? (bf16 ? ssd_norm_wide_bf16 : ssd_norm_wide_f32)
+             : (bf16 ? ssd_norm_bf16 : ssd_norm_f32);
   cudaError_t err;
   const int nprep = dt_blocks(a) + conv_blocks(a) + (conv_cache ? B : 0);
   prep_k<<<nprep, 256, 0, s>>>(a);
@@ -952,7 +962,8 @@ extern "C" int ssd_mixer(const void* proj, const void* conv_w,
            scan_smem(qp), s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long items = static_cast<long long>(B) * S * G;
-  const int per = 8 / norm_warps(a);
-  norm_k<<<static_cast<unsigned>((items + per - 1) / per), 256, 0, s>>>(a);
+  const int per = warps / nw;
+  norm_k<<<static_cast<unsigned>((items + per - 1) / per), 32 * warps, 0,
+           s>>>(a);
   return cudaGetLastError();
 }

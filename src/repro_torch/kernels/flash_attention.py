@@ -13,7 +13,9 @@ Shapes: ``q`` (B, Sq, H, hd); ``k`` / ``v`` (B, Sk, KV, hd) with
 ``H % KV == 0`` — query head ``h`` reads kv head ``h // (H // KV)``, as the
 reference's ``jnp.repeat`` of K/V along the heads implies, but unrepeated;
 ``q_pos`` (B, Sq) and ``kv_pos`` (B, Sk) int32.  Returns ``out`` (B, Sq, H,
-hd) in q's type and ``lse`` (B, H, Sq) float32.  The compute type is q's:
+hd) in q's type and ``lse`` (B, H, Sq) float32.  Scores are ``q·k ·
+scale``, ``scale`` ``1/√hd`` unless given (Granite 4.0-H's
+``attention_multiplier``).  The compute type is q's:
 K and V are rounded to it (the reference's ``k_all.astype(cdt)``), scores
 and the softmax state are float32, P is rounded to it before P·V.  A key
 is visible to a query when ``q_pos >= kv_pos`` (and ``q_pos - kv_pos <
@@ -114,7 +116,7 @@ def _check(q, k, v, q_pos, kv_pos, f64: bool = False) -> None:
 
 
 def _partials_plain(q, k, v, q_pos, kv_pos, window, softcap,
-                    extra_mask=None):
+                    extra_mask=None, scale=None):
     """The online softmax over every key: -> float32 (float64 inputs:
     float64) m, l (B, KV, G, Sq) and acc (B, KV, G, Sq, hd),
     unnormalized.  ``extra_mask`` (B, Sq, Sk) bool, True = attend: the
@@ -126,7 +128,7 @@ def _partials_plain(q, k, v, q_pos, kv_pos, window, softcap,
     cdt = q.dtype
     # float32 sums (float64 for float64 inputs)
     adt = torch.float64 if cdt == torch.float64 else torch.float32
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     chunk = min(KV_CHUNK, sk)
     n_chunks = -(-sk // chunk)
     pad = n_chunks * chunk - sk
@@ -171,7 +173,8 @@ def _partials_plain(q, k, v, q_pos, kv_pos, window, softcap,
 
 
 def flash_attention_plain(q, k, v, q_pos, kv_pos, *, window: int = 0,
-                          softcap: float = 0.0, extra_mask=None):
+                          softcap: float = 0.0, extra_mask=None,
+                          scale: float | None = None):
     """Plain twin: -> (out (B, Sq, H, hd) in q's type, lse (B, H, Sq)),
     float32 (float64 for float64 inputs).  With ``extra_mask`` (B, Sq,
     Sk) it is the reference's unfused path, which the kernel does not
@@ -179,7 +182,7 @@ def flash_attention_plain(q, k, v, q_pos, kv_pos, *, window: int = 0,
     _check(q, k, v, q_pos, kv_pos, f64=True)
     b, sq, h, hd = q.shape
     m, l, acc = _partials_plain(q, k, v, q_pos, kv_pos, window, softcap,
-                                extra_mask)
+                                extra_mask, scale)
     out = acc / torch.clamp(l[..., None], min=1e-20)
     lse = m + torch.log(torch.clamp(l, min=1e-20))
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
@@ -366,7 +369,7 @@ def _plan(q, k, v, q_pos, kv_pos) -> tuple:
 
 
 def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, window: int = 0,
-                         softcap: float = 0.0):
+                         softcap: float = 0.0, scale: float | None = None):
     """Launch the kernel on the current stream (and, on the split path, the
     merge, from the same host call); -> (out, lse) as
     :func:`flash_attention_plain`.  Anything the kernel does not take
@@ -400,7 +403,8 @@ def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, window: int = 0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         kv_pos.data_ptr(), out.data_ptr(), lse.data_ptr(), acc_ptr, ml_ptr,
         b, sq, k.shape[1], h, k.shape[2], hd, int(window), n, per,
-        1.0 / math.sqrt(hd), float(softcap), int(q.dtype == torch.bfloat16),
+        1.0 / math.sqrt(hd) if scale is None else float(scale),
+        float(softcap), int(q.dtype == torch.bfloat16),
         int(k.dtype == torch.bfloat16), idx, _stream(idx))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
@@ -456,7 +460,8 @@ def _check_bwd(q, out, lse, dout) -> None:
 
 
 def flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse, dout, *,
-                              window: int = 0, softcap: float = 0.0):
+                              window: int = 0, softcap: float = 0.0,
+                              scale: float | None = None):
     """Plain twin of the backward: -> (dq in q's type, dk in k's, dv in
     v's), a chunked transcription of the reference's
     ``_fused_flash_bwd_impl`` (KV chunks of ``KV_CHUNK``, padded keys at
@@ -475,7 +480,7 @@ def flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse, dout, *,
     grp = h // kvh
     cdt = q.dtype
     acc = torch.float64 if cdt == torch.float64 else torch.float32
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     chunk = min(KV_CHUNK, sk)
     n_chunks = -(-sk // chunk)
     pad = n_chunks * chunk - sk
@@ -556,7 +561,8 @@ def _bwd_lib():
 
 
 def flash_attention_bwd_cuda(q, k, v, q_pos, kv_pos, out, lse, dout, *,
-                             window: int = 0, softcap: float = 0.0):
+                             window: int = 0, softcap: float = 0.0,
+                             scale: float | None = None):
     """Launch the backward (one host call: ``bwd_prep`` and the one-pass
     ``bwd_wg`` for bf16 at hd > 32, else three kernels) on the current
     stream; -> (dq, dk, dv) as :func:`flash_attention_bwd_plain`.  q, k, v,
@@ -593,8 +599,9 @@ def flash_attention_bwd_cuda(q, k, v, q_pos, kv_pos, out, lse, dout, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         kv_pos.data_ptr(), out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
         work.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
-        sk, h, kvh, hd, int(window), 1.0 / math.sqrt(hd), float(softcap),
-        bf16, idx, _stream(idx))
+        sk, h, kvh, hd, int(window),
+        1.0 / math.sqrt(hd) if scale is None else float(scale),
+        float(softcap), bf16, idx, _stream(idx))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")

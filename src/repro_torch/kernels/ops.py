@@ -166,17 +166,20 @@ def popcount_gemm_bits(x_bits, w_bits, *, kind: str = "and",
 # ---------------------------------------------------------------------------
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
-                    window: int = 0, softcap: float = 0.0):
+                    window: int = 0, softcap: float = 0.0,
+                    scale: float | None = None):
     """Causal / windowed online-softmax attention forward over grouped K/V:
     q (B, Sq, H, hd), k / v (B, Sk, KV, hd), int32 positions (B, Sq) /
-    (B, Sk) -> (out (B, Sq, H, hd) in q's type, lse (B, H, Sq) float32).
-    See :mod:`repro_torch.kernels.flash_attention`."""
+    (B, Sk) -> (out (B, Sq, H, hd) in q's type, lse (B, H, Sq) float32);
+    scores ``q·k · scale`` (``1/√hd`` unless given).  See
+    :mod:`repro_torch.kernels.flash_attention`."""
     return _route(q, _fa.flash_attention_cuda, _fa.flash_attention_plain)(
-        q, k, v, q_pos, kv_pos, window=window, softcap=softcap)
+        q, k, v, q_pos, kv_pos, window=window, softcap=softcap, scale=scale)
 
 
 def flash_attention_bwd(q, k, v, q_pos, kv_pos, out, lse, dout, *,
-                        window: int = 0, softcap: float = 0.0):
+                        window: int = 0, softcap: float = 0.0,
+                        scale: float | None = None):
     """The attention region's backward by recompute: the forward's inputs,
     its ``out`` and ``lse`` and the cotangent ``dout`` -> (dq (B, Sq, H,
     hd), dk, dv (B, Sk, KV, hd) per kv head).  See
@@ -184,4 +187,4 @@ def flash_attention_bwd(q, k, v, q_pos, kv_pos, out, lse, dout, *,
     return _route(q, _fa.flash_attention_bwd_cuda,
                   _fa.flash_attention_bwd_plain)(
         q, k, v, q_pos, kv_pos, out, lse, dout, window=window,
-        softcap=softcap)
+        softcap=softcap, scale=scale)

@@ -25,8 +25,9 @@ The SSD runs in float32 on the CUDA cores (no TF32), its products summed in
 another order than the plain version's.  Scratch (the activated
 ``[x, B, C]``, dt, the running sums and the ``(B, NC, NH, N, 64)`` chunk
 states) is allocated here.  Shapes: head dim 64, state 16 or 128, chunk 128
-or 256, conv width 4, a group's slice of d_inner at most 4,096 wide
-(Nemotron 3 Nano, mamba2-780m, hymba-1.5b); the wrapper raises on others.
+or 256, conv width 4, a group's slice of d_inner at most 8,192 wide
+(Nemotron 3 Nano, mamba2-780m, hymba-1.5b, Granite 4.0-H's one group of 128
+heads); the wrapper raises on others.
 
 :func:`ssd_mixer` dispatches: the kernels for a CUDA tensor where autograd
 does not record, the plain version on the CPU and wherever it records (the
@@ -52,8 +53,8 @@ HEAD_DIM = 64
 STATES = (16, 128)
 CHUNKS = (128, 256)
 CONV = 4
-#: the widest group's slice of d_inner the norm takes (8 warps x 32 x 16)
-GROUP_WIDTH = 4096
+#: the widest group's slice of d_inner the norm takes (16 warps x 32 x 16)
+GROUP_WIDTH = 8192
 #: the mixer's parameters besides the projections
 KEYS = ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip")
 

@@ -7,10 +7,16 @@ backbones.  Exact per-arch instantiations live in ``repro_torch.configs``.
 
 A non-empty ``layer_pattern`` (the port's own, a field of
 :class:`PatternConfig`; the reference has none) gives
-each layer one of three single-mixer kinds, one character a layer: ``M`` a
-Mamba-2 mixer, ``E`` a MoE, ``*`` attention.  Such a layer computes ``x +
-mixer(rmsnorm(x))`` and has no second sub-layer; ``block_type`` is then
-unused.  The MoE options it brings: ``mlp_act="relu2"`` experts
+each layer one of three mixer kinds, one character a layer: ``M`` a
+Mamba-2 mixer, ``E`` a MoE, ``*`` attention; ``block_type`` is then unused.
+With ``layer_ffn`` empty (Nemotron-H) such a layer computes ``x +
+mixer(rmsnorm(x))`` and has no second sub-layer; with ``layer_ffn="moe"``
+(Granite 4.0-H) every layer, ``M`` or ``*``, is a mixer then a MoE: ``x +=
+r · mixer(rmsnorm₁(x))``, then ``x += r · moe(rmsnorm₂(x))``, ``r`` the
+``residual_multiplier``.  Granite's other scalars: ``embedding_multiplier``
+(the embeddings' factor), ``logits_scaling`` (the logits' divisor) and
+``attn_scale`` (the attention's score scale; 0 for ``1/√hd``).  The MoE
+options a pattern brings: ``mlp_act="relu2"`` experts
 (``down(relu(up(h))²)``, no gate projection), ``router="sigmoid"``, which
 always has a score-correction bias (it picks the top k, the weights are
 the plain scores), ``routed_scaling``, and the dropless dispatch
@@ -19,6 +25,10 @@ the plain scores), ``routed_scaling``, and the dropless dispatch
 groups of B and C (head ``h`` reads group ``h // (heads / groups)``) and a
 gated RMSNorm over each of ``ssm_groups`` slices of ``d_inner``.
 ``rope=False`` leaves the attention without positional embedding.
+:func:`option` reads one of :class:`PatternConfig`'s own fields from any
+config: its value, or the field's default for a plain :class:`ModelConfig`
+(the fields that came before it are also class attributes of
+:class:`ModelConfig`, read directly).
 ``fused_attention`` has no effect in the port (every attention without
 ``extra_mask`` runs the flash-attention kernels, forward and backward).
 """
@@ -136,6 +146,16 @@ class ModelConfig:
         """Sub-quadratic decode state (SSM/hybrid/sliding-window archs)."""
         return self.block_type in ("ssm", "hybrid") or self.sliding_window > 0
 
+    @property
+    def n_moe_layers(self) -> int:
+        """Layers that hold a MoE (a pattern model's ``E`` layers, or every
+        layer under ``layer_ffn="moe"``)."""
+        if not self.layer_pattern:
+            return self.n_layers if self.moe else 0
+        if option(self, "layer_ffn") == "moe":
+            return self.n_layers
+        return self.layer_kinds.count("moe")
+
     def __post_init__(self):
         if self.layer_pattern:
             bad = set(self.layer_pattern) - set(LAYER_KINDS)
@@ -143,13 +163,18 @@ class ModelConfig:
                 raise ValueError(
                     f"{self.name}: layer_pattern {self.layer_pattern!r} "
                     f"wants {self.n_layers} of {sorted(LAYER_KINDS)}")
+            ffn = option(self, "layer_ffn")
+            if ffn not in ("", "moe") or (ffn and "E" in self.layer_pattern):
+                raise ValueError(f"{self.name}: layer_ffn {ffn!r} wants '' "
+                                 f"or 'moe' on a pattern without E layers")
 
     def _pattern_param_count(self) -> int:
         """Exact count of a pattern model: per layer its pre-norm and its
         mixer — attention q, k, v, o; Mamba-2 in / out projections, the
         conv with its bias, ``A_log``, ``D``, ``dt_bias`` and the grouped
         norm's scale; MoE router and its bias, the routed and shared
-        experts (two matrices each under relu², three under SwiGLU)."""
+        experts (two matrices each under relu², three under SwiGLU); under
+        ``layer_ffn="moe"`` every layer adds a second norm and a MoE."""
         d, hd = self.d_model, self.hd
         mats = 2 if self.mlp_act == "relu2" else 3
         di, nh = self.d_inner, self.ssm_heads
@@ -164,8 +189,9 @@ class ModelConfig:
             + mats * d * self.d_expert * self.n_experts
             + mats * d * self.d_ff * self.n_shared_experts,
         }
+        ffn = per["moe"] + d if option(self, "layer_ffn") == "moe" else 0
         n = self.vocab * d * (1 if self.tie_embeddings else 2) + d
-        return n + sum(per[k] + d for k in self.layer_kinds)
+        return n + sum(per[k] + d + ffn for k in self.layer_kinds)
 
     def param_count(self) -> int:
         """Approximate parameter count (documented formula, used for
@@ -206,10 +232,9 @@ class ModelConfig:
             return self.param_count()
         full = self.param_count()
         mats = 2 if self.mlp_act == "relu2" else 3
-        n_moe = sum(k == "moe" for k in self.layer_kinds) \
-            if self.layer_pattern else self.n_layers
         inactive = (self.n_experts - self.moe_top_k) * mats * self.d_model \
-            * self.d_expert * n_moe
+            * self.d_expert * (self.n_moe_layers if self.layer_pattern
+                               else self.n_layers)
         return full - inactive
 
     def replace(self, **kw) -> "ModelConfig":
@@ -246,8 +271,9 @@ class ModelConfig:
 @dataclass(frozen=True)
 class PatternConfig(ModelConfig):
     """A :class:`ModelConfig` with the port's own options as fields: the
-    per-layer pattern of single-mixer layers and what its layers take (see
-    the module's docstring).  Nemotron-H is one."""
+    per-layer pattern of mixers, each layer's second sub-layer, and what
+    its layers take (see the module's docstring).  Nemotron-H and Granite
+    4.0-H are two."""
 
     layer_pattern: str = ""
     rope: bool = True
@@ -256,6 +282,22 @@ class PatternConfig(ModelConfig):
     routed_scaling: float = 1.0
     ssm_n_heads: int = 0
     ssm_groups: int = 1
+    layer_ffn: str = ""              # "" | "moe": every layer's second part
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attn_scale: float = 0.0          # 0 -> 1 / sqrt(hd)
+
+
+#: :class:`PatternConfig`'s own fields and their defaults
+_OWN = {f.name: f.default for f in dataclasses.fields(PatternConfig)
+        if f.name not in {g.name for g in dataclasses.fields(ModelConfig)}}
+
+
+def option(cfg: ModelConfig, name: str):
+    """``cfg``'s value of one of :class:`PatternConfig`'s own fields, or the
+    field's default where ``cfg`` is a plain :class:`ModelConfig`."""
+    return getattr(cfg, name, _OWN[name])
 
 
 @dataclass(frozen=True)

@@ -49,7 +49,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import ops
 from ..kernels.flash_attention import flash_attention_plain
-from .config import ModelConfig
+from .config import ModelConfig, option
 
 #: position sentinel of unwritten cache slots — never passes the causal
 #: check (q_pos >= kv_pos), so stale slots are invisible
@@ -211,14 +211,16 @@ class FusedAttention(torch.autograd.Function):
     ``_fa_bwd``): the forward saves ``out`` and ``lse`` beside its inputs,
     the backward recomputes the scores from them.  q (B, Sq, H, hd), k / v
     (B, Sk, KV, hd) unrepeated; dk / dv come back per kv head.  The
-    positions get no gradient."""
+    positions get no gradient.  ``scale``: the scores' factor (None:
+    ``1/√hd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, kv_pos, window: int, softcap: float):
+    def forward(ctx, q, k, v, q_pos, kv_pos, window: int, softcap: float,
+                scale: float | None = None):
         out, lse = ops.flash_attention(q, k, v, q_pos, kv_pos, window=window,
-                                       softcap=softcap)
+                                       softcap=softcap, scale=scale)
         ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
-        ctx.window, ctx.softcap = window, softcap
+        ctx.window, ctx.softcap, ctx.scale = window, softcap, scale
         return out
 
     @staticmethod
@@ -226,17 +228,19 @@ class FusedAttention(torch.autograd.Function):
         q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
         dq, dk, dv = ops.flash_attention_bwd(
             q, k, v, q_pos, kv_pos, out, lse, dout.contiguous(),
-            window=ctx.window, softcap=ctx.softcap)
-        return dq, dk, dv, None, None, None, None
+            window=ctx.window, softcap=ctx.softcap, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None, None
 
 
-def fused_attention(window: int, softcap: float, q, k, v, q_pos, kv_pos):
+def fused_attention(window: int, softcap: float, q, k, v, q_pos, kv_pos,
+                    scale: float | None = None):
     """Attention through the region's kernels, differentiable in q, k, v
     (the reference's ``layers.fused_attention``, with K/V unrepeated).
     DTensor inputs: the kernels run on each rank's batch rows and, where
     the query and kv heads both divide the ``model`` axis, its heads."""
     if not isinstance(q, DTensor):
-        return FusedAttention.apply(q, k, v, q_pos, kv_pos, window, softcap)
+        return FusedAttention.apply(q, k, v, q_pos, kv_pos, window, softcap,
+                                    scale)
     rows = batch_placements(q.device_mesh, q.shape[0])
     heads = list(rows)
     i, m = _model_axis(q.device_mesh)
@@ -246,7 +250,7 @@ def fused_attention(window: int, softcap: float, q, k, v, q_pos, kv_pos):
     def region(q, k, v, q_pos, kv_pos):
         return FusedAttention.apply(q.contiguous(), k.contiguous(),
                                     v.contiguous(), _aligned(q_pos),
-                                    _aligned(kv_pos), window, softcap)
+                                    _aligned(kv_pos), window, softcap, scale)
 
     return local_call(region, (q, k, v, q_pos, kv_pos),
                       (heads, heads, heads, rows, rows), heads)
@@ -315,10 +319,12 @@ def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     (keys of an earlier request sit at their own positions, past the
     block's, or hold the sentinel).  ``"rows"`` (B,) in the cache: the
     prefill writes those batch rows of a larger cache.  The reference's
-    cached path takes no ``extra_mask``."""
+    cached path takes no ``extra_mask``.  The scores' factor is
+    ``attn_scale`` where the config gives one, else ``1/√hd``."""
     b, s, _d = x.shape
     hd = cfg.hd
     cdt = _dt(cfg, "compute")
+    scale = option(cfg, "attn_scale") or None
     xq = _split_heads(x @ p["wq"].to(cdt), cfg.n_heads, hd)
     xk = _split_heads(x @ p["wk"].to(cdt), cfg.n_kv_heads, hd)
     xv = _split_heads(x @ p["wv"].to(cdt), cfg.n_kv_heads, hd)
@@ -335,11 +341,12 @@ def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if kv_cache is None:
         if extra_mask is None:
             out = fused_attention(cfg.sliding_window, cfg.attn_logit_softcap,
-                                  xq, xk, xv, positions, positions)
+                                  xq, xk, xv, positions, positions, scale)
         else:
             out, _lse = flash_attention_plain(
                 xq, xk, xv, positions, positions, window=cfg.sliding_window,
-                softcap=cfg.attn_logit_softcap, extra_mask=extra_mask)
+                softcap=cfg.attn_logit_softcap, extra_mask=extra_mask,
+                scale=scale)
         out = out.reshape(b, s, cfg.n_heads * hd)
         return out @ p["wo"].to(cdt), None
     if isinstance(kv_cache["k"], DTensor):
@@ -364,7 +371,7 @@ def apply_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
         k, v, k_pos = k_new, v_new, positions
     out, _lse = ops.flash_attention(
         xq, k, v, positions, k_pos, window=cfg.sliding_window,
-        softcap=cfg.attn_logit_softcap)
+        softcap=cfg.attn_logit_softcap, scale=scale)
     out = out.reshape(b, s, cfg.n_heads * hd)
     return out @ p["wo"].to(cdt), kv_cache
 
@@ -409,7 +416,8 @@ def _cached_attention_sharded(cfg: ModelConfig, xq, xk, xv, positions,
         kv_pos[:, :n] = pos[:, off:off + n]
     out, lse = ops.flash_attention(q, k, v, _aligned(pos), _aligned(kv_pos),
                                    window=cfg.sliding_window,
-                                   softcap=cfg.attn_logit_softcap)
+                                   softcap=cfg.attn_logit_softcap,
+                                   scale=option(cfg, "attn_scale") or None)
     if split:
         # (B, H, S) lse of every slice -> each slice's weight
         stack = [Shard(1) if isinstance(pl, Shard) else Replicate()
@@ -473,10 +481,15 @@ def apply_cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
 # SwiGLU / relu² FFN
 # ---------------------------------------------------------------------------
 def init_mlp(gen: torch.Generator, cfg: ModelConfig,
-             d_ff: int | None = None) -> dict:
-    """SwiGLU's three matrices, or relu²'s two (``cfg.mlp_act``)."""
+             d_ff: int | None = None, fused: bool = False) -> dict:
+    """SwiGLU's three matrices, or relu²'s two (``cfg.mlp_act``).
+    ``fused``: SwiGLU's gate and up as one ``w_gate_up`` (D, 2·F), the gate
+    columns first (Granite's ``input_linear``)."""
     dt = _dt(cfg, "param")
     d_ff = d_ff or cfg.d_ff
+    if fused:
+        return {"w_gate_up": dense_init(gen, cfg.d_model, 2 * d_ff, dt),
+                "w_down": dense_init(gen, d_ff, cfg.d_model, dt)}
     gate = {} if cfg.mlp_act == "relu2" else {
         "w_gate": dense_init(gen, cfg.d_model, d_ff, dt)}
     return {
@@ -487,9 +500,13 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
 
 
 def apply_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU ``down(silu(gate(x)) · up(x))``, or relu² ``down(relu(up(x))²)``
-    (the square at the compute type)."""
+    """SwiGLU ``down(silu(gate(x)) · up(x))`` (gate and up one product where
+    the MLP holds ``w_gate_up``), or relu² ``down(relu(up(x))²)`` (the
+    square at the compute type)."""
     cdt = _dt(cfg, "compute")
+    if "w_gate_up" in p:
+        g, u = (x @ p["w_gate_up"].to(cdt)).chunk(2, -1)
+        return (F.silu(g) * u) @ p["w_down"].to(cdt)
     u = x @ p["w_up"].to(cdt)
     if cfg.mlp_act == "relu2":
         return torch.relu(u).square() @ p["w_down"].to(cdt)
@@ -507,23 +524,30 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def embed(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of the table at the compute type (gathered, then cast).  On a
+    """Rows of the table at the compute type (gathered, then cast), times
+    ``embedding_multiplier`` where it is not 1.  On a
     mesh each rank gathers its rows from the whole table: DTensor's
     ``index_put`` rule (the gather's backward) fails in torch 2.11."""
     cdt = _dt(cfg, "compute")
     table = p["table"]
     if not isinstance(table, DTensor):
-        return table[tokens].to(cdt)
-    mesh = table.device_mesh
-    rows = batch_placements(mesh, tokens.shape[0])
-    full = [Replicate()] * mesh.ndim
-    return local_call(lambda t, tok: t[tok].to(cdt), (table, tokens),
-                      (full, rows), rows,
-                      grad_placements=(row_partial(rows), None))
+        x = table[tokens].to(cdt)
+    else:
+        mesh = table.device_mesh
+        rows = batch_placements(mesh, tokens.shape[0])
+        full = [Replicate()] * mesh.ndim
+        x = local_call(lambda t, tok: t[tok].to(cdt), (table, tokens),
+                       (full, rows), rows,
+                       grad_placements=(row_partial(rows), None))
+    mult = option(cfg, "embedding_multiplier")
+    return x if mult == 1.0 else x * mult
 
 
 def unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """-> logits (..., V) in float32: the table cast to x's type, then a
     float32 product (exact products of bf16 operands, float32 sums — the
-    reference's preferred_element_type=float32)."""
-    return x.float() @ p["table"].to(x.dtype).float().T
+    reference's preferred_element_type=float32), divided by
+    ``logits_scaling`` where it is not 1."""
+    logits = x.float() @ p["table"].to(x.dtype).float().T
+    div = option(cfg, "logits_scaling")
+    return logits if div == 1.0 else logits / div

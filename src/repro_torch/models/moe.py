@@ -8,17 +8,21 @@ buffers, dropped tokens writing nothing, every expert's products as one
 batched matmul over all E experts.  No host sync: the buffers have a fixed
 shape and the drops are a mask.
 
-Nemotron-H (the port's own, ``capacity_factor = 0``) takes the dropless
-dispatch: a sigmoid router with a score-correction bias that picks the top
-k (the weights are the plain scores, renormalised, times
-``routed_scaling``), relu² experts (two matrices, no gate), and every
-(token, expert) pair computed: the pairs sorted stably by expert, the
-per-expert offsets counted on the device, and one grouped product over the
-sorted rows (:func:`repro_torch.kernels.moe_grouped.grouped_experts`: a CUDA
-kernel on the card, a loop over the experts with rows on the CPU); no host
-read, so the layer is captured in the decode step's CUDA graph.  Every
-expert has its own rows there, so a token's output does not depend on the
-other tokens of the batch.
+Nemotron-H and Granite 4.0-H (the port's own, ``capacity_factor = 0``)
+take the dropless dispatch: every (token, expert) pair computed — the
+pairs sorted stably by expert, the per-expert offsets counted on the
+device, and one grouped product over the sorted rows (a CUDA kernel on the
+card, a loop over the experts with rows on the CPU); no host read, so the
+layer is captured in the decode step's CUDA graph.  Every expert has its
+own rows there, so a token's output does not depend on the other tokens of
+the batch.  Nemotron-H: a sigmoid router with a score-correction bias that
+picks the top k (the weights are the plain scores, renormalised, times
+``routed_scaling``) and relu² experts (two matrices, no gate;
+:func:`repro_torch.kernels.moe_grouped.grouped_experts`).  Granite 4.0-H:
+the softmax router and SwiGLU experts whose gate and up are one matrix,
+``w_gate_up`` (E, 2F, D), the gate rows first (its ``input_linear``;
+:func:`repro_torch.kernels.moe_grouped.grouped_experts_swiglu`), the
+shared expert likewise one ``w_gate_up`` (D, 2F).
 
 While a profile records (:mod:`repro_torch.trace`), an eager call runs its
 parts inside ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
@@ -53,27 +57,35 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
     as one MLP of ``d_ff · n_shared`` (``d_expert · n_shared`` without a
     ``d_ff``).  SwiGLU experts: (E, in, out) each; relu² experts have no
     gate and take the published layout, K-major, as the grouped kernel
-    reads it: ``w_up`` (E, F, D), ``w_down`` (E, D, F).  A sigmoid router
+    reads it: ``w_up`` (E, F, D), ``w_down`` (E, D, F); dropless SwiGLU
+    experts take Granite's, K-major too: ``w_gate_up`` (E, 2F, D), the gate
+    rows first, and ``w_down`` (E, D, F), with the shared experts' gate and
+    up one ``w_gate_up`` (D, 2F).  A sigmoid router
     has a float32 score-correction bias ``router_bias`` (E,),
     N(0, ``ROUTER_BIAS_STD``²)."""
     dt = _dt(cfg, "param")
     e, d, dff = cfg.n_experts, cfg.d_model, cfg.d_expert
+    fused = cfg.mlp_act != "relu2" and cfg.capacity_factor == 0
+    kmajor = cfg.mlp_act == "relu2" or fused
 
     def ew(i, o):
-        shape = (e, o, i) if cfg.mlp_act == "relu2" else (e, i, o)
+        shape = (e, o, i) if kmajor else (e, i, o)
         w = torch.randn(shape, generator=gen, device=gen.device)
         return (w / math.sqrt(i)).to(dt)
 
     p = {"router": dense_init(gen, d, e, torch.float32)}
-    if cfg.mlp_act != "relu2":
-        p["w_gate"] = ew(d, dff)
-    p.update(w_up=ew(d, dff), w_down=ew(dff, d))
+    if fused:
+        p.update(w_gate_up=ew(d, 2 * dff), w_down=ew(dff, d))
+    else:
+        if cfg.mlp_act != "relu2":
+            p["w_gate"] = ew(d, dff)
+        p.update(w_up=ew(d, dff), w_down=ew(dff, d))
     if cfg.router == "sigmoid":
         p["router_bias"] = ROUTER_BIAS_STD * torch.randn(
             (e,), generator=gen, device=gen.device)
     if cfg.n_shared_experts:
         p["shared"] = init_mlp(gen, cfg, d_ff=(cfg.d_ff or cfg.d_expert)
-                               * cfg.n_shared_experts)
+                               * cfg.n_shared_experts, fused=fused)
     return p
 
 
@@ -117,6 +129,11 @@ def _experts(p: dict, xe: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     """(E, C, D) expert buffers -> (E·C, D) outputs: every expert's
     SwiGLU (relu² where the experts have no gate) as batched products."""
     e, c, d = xe.shape
+    if "w_gate_up" in p:                   # SwiGLU, (E, 2F, D): gate, up
+        g, u = torch.bmm(xe, p["w_gate_up"].to(cdt).transpose(1, 2)) \
+            .chunk(2, -1)
+        return torch.bmm(F.silu(g) * u, p["w_down"].to(cdt).transpose(1, 2)) \
+            .reshape(e * c, d)
     if "w_gate" not in p:                  # relu²: (E, out, in) weights
         u = torch.bmm(xe, p["w_up"].to(cdt).transpose(1, 2))
         return torch.bmm(torch.relu(u).square(),
@@ -192,7 +209,8 @@ def _dropless(p: dict, cfg: ModelConfig, xt: torch.Tensor,
               cdt: torch.dtype) -> torch.Tensor:
     """Every (token, expert) pair through its expert: (T, D) -> (T, D).
     The T·K pairs sorted stably by expert, the (E + 1,) offsets counted on
-    the device, one grouped product over the sorted rows, then each pair's
+    the device, one grouped product over the sorted rows (SwiGLU where the
+    experts hold ``w_gate_up``, relu² otherwise), then each pair's
     weighted output back in (token, k) order and summed per token in
     ascending-expert order."""
     n_tok, d = xt.shape
@@ -207,8 +225,12 @@ def _dropless(p: dict, cfg: ModelConfig, xt: torch.Tensor,
         offsets = torch.cumsum(counts, 0, dtype=torch.int32)
         xs = xt.to(cdt)[order // k_top]
     with trace.span("moe.experts"):
-        ys = moe_grouped.grouped_experts(xs, offsets, p["w_up"].to(cdt),
-                                         p["w_down"].to(cdt))
+        if "w_gate_up" in p:
+            ys = moe_grouped.grouped_experts_swiglu(
+                xs, offsets, p["w_gate_up"].to(cdt), p["w_down"].to(cdt))
+        else:
+            ys = moe_grouped.grouped_experts(xs, offsets, p["w_up"].to(cdt),
+                                             p["w_down"].to(cdt))
     with trace.span("moe.combine"):
         w = gate_vals.reshape(tk)[order][:, None].to(cdt)
         contrib = torch.empty_like(ys).index_copy_(0, order, ys * w)

@@ -14,9 +14,12 @@ updated in place by :func:`decode_step` (and by a prefill into them).
 
 A pattern model (``cfg.layer_pattern``, the port's own) builds each layer
 by its kind: ``{"norm", "attn"}``, ``{"norm", "ssm"}`` or ``{"norm",
-"moe"}``, applied as ``x + mixer(rmsnorm(x))``; its caches hold ``"kv"``
-for attention layers, ``"ssm"`` for SSM layers and nothing for MoE
-layers, two kinds of state side by side in one list.
+"moe"}``, applied as ``x + mixer(rmsnorm(x))``; under ``layer_ffn="moe"``
+each layer also holds ``{"norm2", "moe"}``, applied after the mixer, and
+both sub-layers' outputs are scaled by ``residual_multiplier`` before
+their adds.  Its caches hold ``"kv"`` for attention layers, ``"ssm"`` for
+SSM layers and nothing for MoE layers, two kinds of state side by side in
+one list.
 
 Without a cache, each block (a VLM: each super-block) runs under the
 reference's remat policy (:func:`remat_wrap`, ``cfg.remat``) when autograd
@@ -45,7 +48,7 @@ from torch.utils import checkpoint as ckpt
 from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
-from .config import ModelConfig
+from .config import ModelConfig, option
 from .layers import _dt
 
 
@@ -59,13 +62,18 @@ MIXER = {"attention": "attn", "ssm": "ssm", "moe": "moe"}
 def init_block(gen: torch.Generator, cfg: ModelConfig,
                kind: str | None = None) -> dict:
     """A block's parameters; a pattern model's layer of ``kind``: its
-    pre-norm and its one mixer."""
+    pre-norm and its one mixer, then, under ``layer_ffn="moe"``, its second
+    norm and its MoE."""
     dt, dev = _dt(cfg, "param"), gen.device
     if cfg.layer_pattern:
         init = {"attention": L.init_attention, "ssm": SSM.init_ssm,
                 "moe": MOE.init_moe}[kind]
-        return {"norm": L.init_rmsnorm(cfg.d_model, dt, dev),
-                MIXER[kind]: init(gen, cfg)}
+        p = {"norm": L.init_rmsnorm(cfg.d_model, dt, dev),
+             MIXER[kind]: init(gen, cfg)}
+        if option(cfg, "layer_ffn") == "moe":
+            p.update(norm2=L.init_rmsnorm(cfg.d_model, dt, dev),
+                     moe=MOE.init_moe(gen, cfg))
+        return p
     p: dict = {"norm1": L.init_rmsnorm(cfg.d_model, dt, dev)}
     if cfg.block_type in ("attention", "hybrid"):
         p["attn"] = L.init_attention(gen, cfg)
@@ -133,8 +141,11 @@ def _apply_layer(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  positions: torch.Tensor, cache: dict | None, extra_mask,
                  valid) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """One layer of a pattern model: its mixer on the normed stream, added
-    back; its cache (``"kv"``, ``"ssm"`` or none) written in place."""
+    back, then (``"norm2"`` in the layer) its MoE on the normed stream,
+    added back, each output times ``residual_multiplier``; its cache
+    (``"kv"``, ``"ssm"`` or none) written in place."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    r = option(cfg, "residual_multiplier")
     h = L.rmsnorm(p["norm"], x, cfg.norm_eps)
     if kind == "attention":
         out, _kv = L.apply_attention(p["attn"], cfg, h, positions,
@@ -146,7 +157,12 @@ def _apply_layer(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                                   valid=valid)
     else:
         out, aux = MOE.apply_moe(p["moe"], cfg, h)
-    return x + out, cache, aux
+    x = x + (out if r == 1.0 else out * r)
+    if "norm2" in p:
+        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        out, aux = MOE.apply_moe(p["moe"], cfg, h)
+        x = x + (out if r == 1.0 else out * r)
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------

@@ -80,7 +80,7 @@ class DecodeGraph:
         #: kernel launches of one replay (host counts taken at capture):
         #: the attention kernels', then the grouped expert products'
         self.per_replay: dict[str, int] = {}
-        self.grouped_per_replay = 0
+        self.grouped_per_replay: dict[str, int] = {}
         #: the last step's expert choice of each MoE layer, (B, K) each
         #: (on a CUDA device the graph's own buffers)
         self.routes: list[torch.Tensor] = []
@@ -113,16 +113,16 @@ class DecodeGraph:
             self._step()
         main.wait_stream(side)
         counted = dict(FA.launches)
-        grouped = moe_grouped.launches["moe_grouped"]
+        grouped = dict(moe_grouped.launches)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph), MOE.recording() as routes:
             self.logits, self.next_tokens = self._step()
         self.routes = routes
         self.per_replay = {k: FA.launches[k] - n for k, n in counted.items()}
         FA.launches.update(counted)         # the capture launched nothing
-        self.grouped_per_replay = moe_grouped.launches["moe_grouped"] \
-            - grouped
-        moe_grouped.launches["moe_grouped"] = grouped
+        self.grouped_per_replay = {k: moe_grouped.launches[k] - n
+                                   for k, n in grouped.items()}
+        moe_grouped.launches.update(grouped)
 
     def run(self, tokens, positions) -> tuple[torch.Tensor, torch.Tensor]:
         """Copy ``tokens`` (B, 1) and ``positions`` (B, 1) (tensors on any
@@ -137,5 +137,6 @@ class DecodeGraph:
             self.graph.replay()
             for k, n in self.per_replay.items():
                 FA.launches[k] += n
-            moe_grouped.launches["moe_grouped"] += self.grouped_per_replay
+            for k, n in self.grouped_per_replay.items():
+                moe_grouped.launches[k] += n
         return self.logits, self.next_tokens

@@ -149,3 +149,64 @@ def test_bf16_combine_adds_in_ascending_expert_order():
                        ).astype(bf)
     np.testing.assert_array_equal(got.reshape(16, -1).float().numpy(),
                                   want.astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_the_swiglu_grouped_twin_is_a_loop_over_the_experts(dtype, tol):
+    """Experts with 0 rows in the first, middle and last place: the SwiGLU
+    twin (``w_gate_up`` (E, 2F, D), the gate rows first) equals each row
+    through its own expert, row by row (float32 sums in another order; in
+    bf16 one rounding of either product may land an ulp, 2^-8, apart;
+    another expert's row, or gate and up swapped, is off by its whole
+    size)."""
+    from repro_torch.kernels import moe_grouped as MG
+    e, d, f = 6, 32, 24
+    g = torch.Generator().manual_seed(11)
+    w_gu = (torch.randn(e, 2 * f, d, generator=g) / d ** 0.5).to(dtype)
+    w_down = (torch.randn(e, d, f, generator=g) / f ** 0.5).to(dtype)
+    counts = [0, 5, 0, 1, 9, 0]
+    off = torch.tensor([0, *np.cumsum(counts).tolist()], dtype=torch.int32)
+    xs = torch.randn(int(off[-1]), d, generator=g).to(dtype)
+    got = MG.grouped_experts_swiglu(xs, off, w_gu, w_down)
+    for i in range(xs.shape[0]):
+        ex = int((off[1:] <= i).sum())
+        gate = w_gu[ex, :f].float() @ xs[i].float()
+        up = w_gu[ex, f:].float() @ xs[i].float()
+        h = (torch.nn.functional.silu(gate) * up).to(dtype)
+        want = (w_down[ex].float() @ h.float()).to(dtype)
+        scale = float(want.float().abs().max())
+        assert float((got[i].float() - want.float()).abs().max()) \
+            <= tol * scale, i
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "models_moe"])
+def test_softmax_dropless_equals_the_capacity_path_that_drops_nothing(name):
+    """The softmax router on the dropless dispatch (``capacity_factor`` 0:
+    SwiGLU experts in the grouped layout, ``w_gate_up`` (E, 2F, D) and the
+    shared experts' ``w_gate_up`` (D, 2F)) equals the capacity dispatch at
+    a capacity that drops no pair (``E / K``), on the same weights laid out
+    for each; float32, sums in another order."""
+    _r, cap_cfg = _cfgs(name)
+    cap_cfg = cap_cfg.replace(capacity_factor=cap_cfg.n_experts
+                              / cap_cfg.moe_top_k)
+    drop_cfg = cap_cfg.replace(capacity_factor=0.0)
+    p = TMOE.init_moe(torch.Generator().manual_seed(12), cap_cfg)
+    assert set(TMOE.init_moe(torch.Generator().manual_seed(12), drop_cfg)) \
+        == {"router", "w_gate_up", "w_down"} | ({"shared"} if "shared" in p
+                                                 else set())
+    q = {"router": p["router"],
+         "w_gate_up": torch.cat([p["w_gate"], p["w_up"]], 2)
+         .transpose(1, 2).contiguous(),
+         "w_down": p["w_down"].transpose(1, 2).contiguous()}
+    if "shared" in p:
+        q["shared"] = {"w_gate_up": torch.cat([p["shared"]["w_gate"],
+                                               p["shared"]["w_up"]], 1),
+                       "w_down": p["shared"]["w_down"]}
+    x = torch.from_numpy(np.random.default_rng(13).normal(
+        0, 1, (2, 12, cap_cfg.d_model)).astype(np.float32))
+    assert _dropped(cap_cfg, {"router": p["router"].numpy()}, x) == 0
+    want, aux_c = TMOE.apply_moe(p, cap_cfg, x)
+    got, aux_d = TMOE.apply_moe(q, drop_cfg, x)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert float(aux_d) == float(aux_c)

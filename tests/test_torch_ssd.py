@@ -9,7 +9,8 @@ branch, left in ``models/ssm.py``, equals it too.  Where autograd records,
 the plain version runs.
 
 On the card (``-m cuda``): the kernels against the plain version at the
-widths of Nemotron 3 Nano, mamba2-780m and hymba-1.5b.  Tolerances, each of
+widths of Nemotron 3 Nano, mamba2-780m, hymba-1.5b and Granite 4.0-H
+(one group of 128 heads).  Tolerances, each of
 the largest value compared: the conv window is a copy (exact); the final
 state is float32 on both sides, its products and its log-decay sums taken in
 another order (the exponentials turn an absolute error of the sums, a few
@@ -234,10 +235,37 @@ def test_the_wrapper_refuses_shapes_it_does_not_take():
         SSD._check(ok, proj[:, :200], None, None)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_one_group_width_of_granite(dtype):
+    """Granite 4.0-H's mixer: 128 heads in one group, a gated norm over one
+    slice of 8,192 (d_model cut to 64: it sets only the projections'
+    other side).  The wrapper's check takes it and refuses a group twice as
+    wide; the plain version equals the chunked body before the kernels bit
+    for bit over two chunks of 256, right-padded rows written into a
+    larger cache."""
+    base = get_config("granite-4.0-h-small")
+    assert (base.ssm_groups, base.d_inner) == (1, SSD.GROUP_WIDTH)
+    cfg = base.replace(d_model=64, param_dtype=dtype, compute_dtype=dtype)
+    p, proj = _case(cfg, 2, 512, seed=12)
+    SSD._check(cfg, proj, None, None)
+    wide = cfg.replace(ssm_n_heads=256)
+    with pytest.raises(ValueError):
+        SSD._check(wide, torch.zeros((1, 256, 2 * wide.d_inner + 2 * 128
+                                      + 256)), None, None)
+    valid = torch.arange(512)[None] < torch.tensor([512, 300])[:, None]
+    want_c, got_c = _two(cfg, 3, [2, 0], seed=13)
+    want = _mixer_before(p, cfg, proj, want_c, valid)
+    got = SSD.ssd_mixer(p, cfg, proj, got_c, valid)
+    assert torch.equal(got, want)
+    assert torch.equal(got_c["state"], want_c["state"])
+    assert torch.equal(got_c["conv"], want_c["conv"])
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
-ARCHS = ("nemotron-3-nano-30b-a3b", "mamba2-780m", "hymba-1.5b")
+ARCHS = ("nemotron-3-nano-30b-a3b", "mamba2-780m", "hymba-1.5b",
+         "granite-4.0-h-small")
 #: of the largest value compared (see the module's docstring)
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 STATE_TOL = 1e-4
