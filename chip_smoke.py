@@ -238,6 +238,10 @@ SSD_ONE_GROUP = {"granite_s4096": (1, 4096)}
 #: the kernels against the plain version, of the largest output (bf16):
 #: three roundings to bf16 after float32 sums taken in another order
 SSD_TOL = 2e-2
+#: the recurrent step's kernels alone: the decode graph's rows, at the
+#: widths of both served Mamba-2 models
+SSD_STEP_ROWS = 16
+SSD_STEP_ARCHS = ("nemotron-3-nano-30b-a3b", "granite-4.0-h-small")
 #: the served model and engine (src/repro/configs/qwen3_4b.py, uncut)
 SERVE_ARCH, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = "qwen3-4b", 4, 4096, 32
 #: prompt lengths are drawn from this range (numpy default_rng(0))
@@ -1476,6 +1480,15 @@ def _time_graph_ms(fn, reps: int = 20, stream=None) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _time_graph_cold_ms(fn, reps: int = 20) -> float:
+    """Device time of one call in a CUDA graph that finds the L2 cache
+    cold: a graph of ``reps`` times a 256 MiB write (five times the 50 MB
+    L2) then the call, less a graph of the writes alone, over the count."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    both = _time_graph_ms(lambda: (flush.fill_(1.0), fn()), reps)
+    return both - _time_graph_ms(lambda: flush.fill_(1.0), reps)
+
+
 def _time_cold_ms(fn, reps: int = 10) -> float:
     """Device time of one call that finds the L2 cache cold: CUDA events
     around each call, a 256 MiB buffer (five times the 50 MB L2) written
@@ -1913,6 +1926,108 @@ def check_ssd(SD) -> list[dict]:
     return rows
 
 
+def _ssd_step_bytes(cfg, b: int) -> float:
+    """Bytes of one recurrent step at bf16: the float32 state read once and
+    written once, the projection row read, the conv window read and
+    written, the output written, the parameters read once."""
+    nh, g, n, hd = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state, \
+        cfg.ssm_head_dim
+    di = cfg.d_inner
+    cd, kw = di + 2 * g * n, cfg.ssm_conv
+    width = 2 * di + 2 * g * n + nh
+    return float(2 * 4 * b * nh * n * hd + 2 * b * width
+                 + 2 * 2 * b * (kw - 1) * cd + 2 * b * di
+                 + 2 * (kw + 1) * cd + 2 * di + 12 * nh)
+
+
+def check_ssd_step(SD) -> list[dict]:
+    """The recurrent step's kernels (``kernels/ssd.py`` ``ssd_step_cuda``)
+    alone at :data:`SSD_STEP_ROWS` rows, bf16, at the widths of
+    :data:`SSD_STEP_ARCHS`, from a random state: against the plain step
+    (output, state, window), the launches a call (each a ``ssd_`` kernel
+    in the profile), then CUDA events over 20 calls queued and in a CUDA
+    graph, beside the plain step's, and the bound by bytes.  Nemotron's
+    state at 16 rows (33.6 MB) fits the 50 MB L2, where a served step
+    finds it cold: :func:`_time_graph_cold_ms` is printed too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as SSM
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    rows, b = [], SSD_STEP_ROWS
+    for arch in SSD_STEP_ARCHS:
+        cfg = get_config(arch)
+        p = SSM.init_ssm(gen, cfg)
+        u = torch.randn((b, 1, cfg.d_model), generator=gen,
+                        device="cuda").bfloat16()
+        proj = u @ p["w_in"]
+        plain_c = SSM.init_ssm_cache(cfg, b, "cuda")
+        plain_c["state"].normal_(generator=gen)
+        plain_c["conv"].normal_(generator=gen)
+        got_c = {k: t.clone() for k, t in plain_c.items()}
+        want = SD.ssd_step_plain(p, cfg, proj, plain_c, None)
+        before = SD.launches["ssd_step"]
+        got = SD.ssd_step_cuda(p, cfg, proj, got_c, None)
+        torch.cuda.synchronize()
+        per_call = SD.launches["ssd_step"] - before
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        st = float((got_c["state"] - plain_c["state"]).abs().max()
+                   / plain_c["state"].abs().max())
+        assert err <= SSD_TOL and st <= 1e-4, (arch, err, st)
+        assert torch.equal(got_c["conv"], plain_c["conv"]), arch
+        assert per_call == SD.STEP_KERNELS <= 3, per_call
+        call = lambda: SD.ssd_step_cuda(p, cfg, proj, got_c, None)
+        plain = lambda: SD.ssd_step_plain(p, cfg, proj, plain_c, None)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        kernels = {}
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", 0) or getattr(
+                e, "cuda_time_total", 0)
+            if e.key.startswith("ssd_") and t > 0:
+                kernels[e.key] = {"calls": e.count // 5,
+                                  "device_ms": round(t / 5 / 1e3, 6)}
+        assert sum(k["calls"] for k in kernels.values()) == per_call, \
+            kernels
+        nbytes = _ssd_step_bytes(cfg, b)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ms, graph_ms = _time_ms(call), _time_graph_ms(call)
+        cold_ms = _time_graph_cold_ms(call)
+        plain_ms, plain_graph_ms = _time_ms(plain), _time_graph_ms(plain)
+        row = {"name": "ssd_step", "tag": f"{arch}_b{b}",
+               "shape": {"rows": b, "heads": cfg.ssm_heads,
+                         "head_dim": cfg.ssm_head_dim,
+                         "groups": cfg.ssm_groups, "state": cfg.ssm_state},
+               "ms": round(ms, 6), "graph_ms": round(graph_ms, 6),
+               "cold_ms": round(cold_ms, 6),
+               "plain_ms": round(plain_ms, 6),
+               "plain_graph_ms": round(plain_graph_ms, 6),
+               "bound_ms": round(bound_ms, 6), "bound_by": "bytes",
+               "share_of_bound": round(bound_ms / ms, 4),
+               "graph_share_of_bound": round(bound_ms / graph_ms, 4),
+               "cold_share_of_bound": round(bound_ms / cold_ms, 4),
+               "vs_plain_graph": round(plain_graph_ms / graph_ms, 2),
+               "bytes": nbytes, "rel_err": err, "state_rel_err": st,
+               "launches_per_call": per_call, "device_kernels": kernels,
+               "library_ms": None}
+        print(f"[ssd_step] {arch} B={b}: kernels queued {row['ms']} ms, "
+              f"graph {row['graph_ms']} ms ({row['graph_share_of_bound']} of "
+              f"the bound {row['bound_ms']} ms by bytes; queued "
+              f"{row['share_of_bound']}), in a graph after an L2 flush "
+              f"{row['cold_ms']} ms ({row['cold_share_of_bound']}); plain "
+              f"queued "
+              f"{row['plain_ms']} ms, "
+              f"graph {row['plain_graph_ms']} ms ({row['vs_plain_graph']}x); "
+              f"{per_call} launches a call, device {kernels}; kernel vs "
+              f"plain {err}, state {st}", flush=True)
+        rows.append(row)
+        del p, proj, want, got, plain_c, got_c
+    return rows
+
+
 def _ssd_tokens(SD) -> dict:
     """Nemotron 3 Nano cut to its first 6 layers (up to the first attention
     layer), float32 with TF32 off, random weights at full width, behind a
@@ -2332,11 +2447,13 @@ def _serve_arch(counts: Counts, card: str, arch: str) -> tuple[dict, dict]:
     for name, n in per_call.items():
         assert c[name] == n * (n_pre + n_dec), (c, name, n, n_pre, n_dec)
     grouped = sum(per_call.values()) * (n_pre + n_dec)
-    # a Mamba-2 mixer: the chunked kernels once a prefill forward
+    # a Mamba-2 mixer: the chunked kernels once a prefill forward, the
+    # step's (at most 3) once a decode step
     ssd = _ssd_launches(cfg, n_pre)
-    assert c["ssd"] == ssd, (c, ssd)
+    step = _ssd_step_launches(cfg, n_dec)
+    assert c["ssd"] == ssd and c["ssd_step"] == step, (c, ssd, step)
     assert sum(c.values()) == c["flash_attention"] \
-        + c["flash_attention_combine"] + grouped + ssd, c
+        + c["flash_attention_combine"] + grouped + ssd + step, c
     assert len(done) == ARCH_REQUESTS and all(
         len(r.out_tokens) == ARCH_NEW for r in done), \
         [len(r.out_tokens) for r in done]
@@ -2431,6 +2548,15 @@ def _ssd_launches(cfg, forwards: int) -> int:
     from repro_torch.kernels.ssd import KERNELS
     return KERNELS * forwards * sum(k in ("ssm", "hybrid")
                                     for k in cfg.layer_kinds)
+
+
+def _ssd_step_launches(cfg, steps: int) -> int:
+    """The recurrent step's launches in ``steps`` decode steps: at most 3
+    a step in each layer with a Mamba-2 mixer."""
+    from repro_torch.kernels.ssd import STEP_KERNELS
+    assert STEP_KERNELS <= 3
+    return STEP_KERNELS * steps * sum(k in ("ssm", "hybrid")
+                                      for k in cfg.layer_kinds)
 
 
 def _grouped_products(cfg) -> dict[str, int]:
@@ -3425,7 +3551,7 @@ def main() -> int:
           f"{bwd_row['library_cold_ms']}), bound {bwd_row['bound_ms']} ms "
           f"({bwd_row['bound_by']}) at {bwd_row['shape']}", flush=True)
     moe_rows = check_moe_grouped(MG)
-    ssd_rows = check_ssd(SD)
+    ssd_rows = check_ssd(SD) + check_ssd_step(SD)
     t0 = _phase("kernel_vs_plain", t0, times)
 
     # ---- main path: the launch count covers exactly these calls ----

@@ -43,6 +43,26 @@
 // conv width 4, any number of heads and groups with a group's slice of
 // d_inner at most 8,192 wide (Granite 4.0-H's one group of 128 heads); the
 // wrapper refuses others.
+//
+// The recurrent step (decode, one token a row; ssd_step) replaces no TPU
+// kernel either: the reference's step is jnp.  The plain step
+// (kernels/ssd.py, ssd_step_plain) is ~38 kernels a layer that pass over the
+// float32 state (B, NH, N, 64) nine times (a broadcast update, the decay,
+// the sum, a batched GEMM at M = 1, the copy into the cache).  Here it is
+// three launches, the state read once and written once in place:
+//
+//   step_prep   dt and its decay exp(dt·A), one thread a (row, head); the
+//               conv of the cached window and the new input, + bias, SiLU,
+//               into scratch; the window shifted in the cache.
+//   step_state  one block a (row, head): s' = s·exp(dt·A) + B (dt·x) in
+//               float32, rounded as the plain step's, back into the cache;
+//               y = C·s' + D·x, rounded to the compute type.
+//   norm        the chunked path's gate and grouped RMSNorm, at S = 1.
+//
+// What bounds it: the state's bytes, 2 x 4 B x N x 64 a (row, head): 134 MB
+// a layer at 16 rows and Granite 4.0-H's 128 heads (40 us at 3.35 TB/s).
+// One block owns a (row, head) tile, 2,048 of them at those widths, each
+// thread's 16-byte loads all issued before the first is used.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -843,6 +863,158 @@ __device__ void norm_body(const Args& a) {
     norm_part<T, 1>(a);
 }
 
+// ---------------------------------------------------------------------------
+// The recurrent step: one token a row, the state and conv window in the
+// cache (S = Q = NC = 1; xbc (B, CD), dtv and cs (B, NH): dt and its decay)
+// ---------------------------------------------------------------------------
+constexpr int STEP_THREADS = 256;
+
+__host__ __device__ __forceinline__ int step_dt_blocks(const Args& a) {
+  return (a.B * a.NH + STEP_THREADS - 1) / STEP_THREADS;
+}
+__host__ __device__ __forceinline__ int step_conv_blocks(const Args& a) {
+  return a.B * ((a.CD / a.vec + STEP_THREADS - 1) / STEP_THREADS);
+}
+
+// One thread a (row, head): dt = softplus(dt_raw + dt_bias), 0 on a pad,
+// and its decay exp(dt·A), A = -exp(a_log), as the plain step rounds them.
+template <typename T>
+__device__ void step_dt_part(const Args& a, int blk) {
+  const int i = blk * STEP_THREADS + static_cast<int>(threadIdx.x);
+  if (i >= a.B * a.NH) return;
+  const int h = i % a.NH, b = i / a.NH;
+  const T* src = static_cast<const T*>(a.proj) + static_cast<size_t>(b) * a.P +
+                 a.di + a.CD + h;
+  float d = softplus(__fadd_rn(to_f(*src), a.dt_bias[h]));
+  if (a.valid) d = __fmul_rn(d, a.valid[b] ? 1.0f : 0.0f);
+  a.dtv[i] = d;
+  a.cs[i] = expf(__fmul_rn(d, -expf(a.a_log[h])));
+}
+
+// V channels of one row: the plain step's einsum over the cached window and
+// the new input (a float32 sum of the four products, rounded once), + bias
+// and SiLU, each rounded, into xbc; then the window shifted by one.  A
+// channel's window is read and written by this thread alone, and the state
+// launch reads B and C from xbc, so no block reads a window another shifts.
+template <typename T, int V>
+__device__ void step_conv_part(const Args& a, int blk) {
+  typedef Vec<T, V> VT;
+  const int tiles = (a.CD / V + STEP_THREADS - 1) / STEP_THREADS;
+  const int b = blk / tiles;
+  const int ch = (blk % tiles * STEP_THREADS + static_cast<int>(threadIdx.x)) *
+                 V;
+  if (ch >= a.CD) return;
+  T* win = static_cast<T*>(a.conv_cache) +
+           static_cast<size_t>(b) * (KW - 1) * a.CD + ch;
+  const T* w = static_cast<const T*>(a.conv_w) + ch;
+  VT xin[KW], wk[KW];
+#pragma unroll
+  for (int i = 0; i < KW - 1; ++i)
+    xin[i] = *reinterpret_cast<const VT*>(win + static_cast<size_t>(i) * a.CD);
+  xin[KW - 1] = *reinterpret_cast<const VT*>(
+      static_cast<const T*>(a.proj) + static_cast<size_t>(b) * a.P + a.di + ch);
+#pragma unroll
+  for (int i = 0; i < KW; ++i)
+    wk[i] = *reinterpret_cast<const VT*>(w + static_cast<size_t>(i) * a.CD);
+  const VT bias = *reinterpret_cast<const VT*>(
+      static_cast<const T*>(a.conv_b) + ch);
+  VT o;
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    float acc = __fmul_rn(to_f(xin[0].v[u]), to_f(wk[0].v[u]));
+#pragma unroll
+    for (int i = 1; i < KW; ++i)
+      acc = fmaf(to_f(xin[i].v[u]), to_f(wk[i].v[u]), acc);
+    acc = rnd<T>(__fadd_rn(rnd<T>(acc), to_f(bias.v[u])));
+    o.v[u] = from_f<T>(silu(acc));
+  }
+  *reinterpret_cast<VT*>(static_cast<T*>(a.xbc) + static_cast<size_t>(b) *
+                         a.CD + ch) = o;
+#pragma unroll
+  for (int i = 0; i < KW - 1; ++i)
+    *reinterpret_cast<VT*>(win + static_cast<size_t>(i) * a.CD) = xin[i + 1];
+}
+
+template <typename T>
+__device__ void step_prep(const Args& a) {
+  const int blk = blockIdx.x, ndt = step_dt_blocks(a);
+  if (blk < ndt) return step_dt_part<T>(a, blk);
+  if (a.vec == 8)
+    step_conv_part<T, 8>(a, blk - ndt);
+  else
+    step_conv_part<T, 1>(a, blk - ndt);
+}
+
+// s' = s·da + B_n (dt·x_p): the plain step's products and sum, each rounded
+__device__ __forceinline__ float step_one(float s, float da, float bn,
+                                          float dx) {
+  return __fadd_rn(__fmul_rn(s, da), __fmul_rn(bn, dx));
+}
+
+// One block a (row, head) and its N x 64 float32 state, read once and
+// written once in place.  Thread (r, c) holds rows r + 16k and columns 4c ..
+// 4c + 3 as float4s, all loaded before any is used (a warp's loads are two
+// whole rows).  y_p = Σ_n C_n s'_np: each thread's rows in order, then a
+// warp's two rows, then the 8 warps in order, by one thread a column (no
+// atomics: a replay repeats it bit for bit); y + D·x rounded to the compute
+// type (the gate is the norm's).
+template <typename T, int NS>
+__device__ void step_state_body(const Args& a) {
+  constexpr int R = NS / 16;
+  constexpr int W = STEP_THREADS / 32;
+  __shared__ float bn[NS], cn[NS], xs[HD];
+  __shared__ __align__(16) float part[W][HD];
+  const int h = blockIdx.x % a.NH, b = blockIdx.x / a.NH;
+  const int g = h / (a.NH / a.G);
+  const int tid = threadIdx.x, c4 = (tid & 15) * 4, r0 = tid >> 4;
+  float* st = a.state_cache + (static_cast<size_t>(b) * a.NH + h) * NS * HD;
+  float4 s[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    s[k] = *reinterpret_cast<const float4*>(st + (r0 + 16 * k) * HD + c4);
+  const T* xb = static_cast<const T*>(a.xbc) + static_cast<size_t>(b) * a.CD;
+  if (tid < NS) {
+    bn[tid] = to_f(xb[a.di + g * NS + tid]);
+    cn[tid] = to_f(xb[a.di + (a.G + g) * NS + tid]);
+  }
+  if (tid < HD) xs[tid] = to_f(xb[h * HD + tid]);
+  const float dt = a.dtv[b * a.NH + h], da = a.cs[b * a.NH + h];
+  __syncthreads();
+  const float dx0 = __fmul_rn(dt, xs[c4]), dx1 = __fmul_rn(dt, xs[c4 + 1]);
+  const float dx2 = __fmul_rn(dt, xs[c4 + 2]), dx3 = __fmul_rn(dt, xs[c4 + 3]);
+  float y0 = 0.0f, y1 = 0.0f, y2 = 0.0f, y3 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int n = r0 + 16 * k;
+    const float bv = bn[n], cv = cn[n];
+    float4 v = s[k];
+    v.x = step_one(v.x, da, bv, dx0);
+    v.y = step_one(v.y, da, bv, dx1);
+    v.z = step_one(v.z, da, bv, dx2);
+    v.w = step_one(v.w, da, bv, dx3);
+    *reinterpret_cast<float4*>(st + n * HD + c4) = v;
+    y0 = fmaf(cv, v.x, y0);
+    y1 = fmaf(cv, v.y, y1);
+    y2 = fmaf(cv, v.z, y2);
+    y3 = fmaf(cv, v.w, y3);
+  }
+  y0 = __fadd_rn(y0, __shfl_xor_sync(0xffffffffu, y0, 16));
+  y1 = __fadd_rn(y1, __shfl_xor_sync(0xffffffffu, y1, 16));
+  y2 = __fadd_rn(y2, __shfl_xor_sync(0xffffffffu, y2, 16));
+  y3 = __fadd_rn(y3, __shfl_xor_sync(0xffffffffu, y3, 16));
+  if ((tid & 31) < 16)
+    *reinterpret_cast<float4*>(&part[tid >> 5][c4]) =
+        make_float4(y0, y1, y2, y3);
+  __syncthreads();
+  if (tid < HD) {
+    float y = 0.0f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) y = __fadd_rn(y, part[w][tid]);
+    static_cast<T*>(a.out)[static_cast<size_t>(b) * a.di + h * HD + tid] =
+        from_f<T>(__fadd_rn(y, __fmul_rn(a.d_skip[h], xs[tid])));
+  }
+}
+
 }  // namespace
 
 // Unmangled kernel names, one per compute type and state width, so that a
@@ -872,6 +1044,14 @@ SSD_TYPED(ssd_norm_wide_f32, norm_body, (512), float)
 extern "C" __global__ void __launch_bounds__(256) ssd_pass(const Args a) {
   pass_body(a);
 }
+SSD_TYPED(ssd_step_prep_bf16, step_prep, (STEP_THREADS), __nv_bfloat16)
+SSD_TYPED(ssd_step_prep_f32, step_prep, (STEP_THREADS), float)
+SSD_WIDE(ssd_step_state_bf16_n128, step_state_body, (STEP_THREADS),
+         __nv_bfloat16, 128)
+SSD_WIDE(ssd_step_state_bf16_n16, step_state_body, (STEP_THREADS),
+         __nv_bfloat16, 16)
+SSD_WIDE(ssd_step_state_f32_n128, step_state_body, (STEP_THREADS), float, 128)
+SSD_WIDE(ssd_step_state_f32_n16, step_state_body, (STEP_THREADS), float, 16)
 
 namespace {
 
@@ -911,6 +1091,20 @@ int head_tile(int B, int NC, int its, int G, int hg) {
   return ht;
 }
 
+// The gate and grouped RMSNorm over a.out, in place: 8 warps a block, or a
+// slice's where it takes more.
+cudaError_t launch_norm(const Args& a, int bf16, cudaStream_t s) {
+  const int nw = norm_warps(a), warps = nw > 8 ? nw : 8;
+  const Kernel norm_k =
+      nw > 8 ? (bf16 ? ssd_norm_wide_bf16 : ssd_norm_wide_f32)
+             : (bf16 ? ssd_norm_bf16 : ssd_norm_f32);
+  const long long items = static_cast<long long>(a.B) * a.S * a.G;
+  const int per = warps / nw;
+  norm_k<<<static_cast<unsigned>((items + per - 1) / per), 32 * warps, 0,
+           s>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The five launches of one chunked mixer call on `stream`; 0, or the first
@@ -943,11 +1137,6 @@ extern "C" int ssd_mixer(const void* proj, const void* conv_w,
                               : (n128 ? ssd_state_f32_n128 : ssd_state_f32_n16);
   const Kernel scan_k = bf16 ? (n128 ? ssd_scan_bf16_n128 : ssd_scan_bf16_n16)
                              : (n128 ? ssd_scan_f32_n128 : ssd_scan_f32_n16);
-  // the norm's warps a block: 8, or a slice's where it takes more
-  const int nw = norm_warps(a), warps = nw > 8 ? nw : 8;
-  const Kernel norm_k =
-      nw > 8 ? (bf16 ? ssd_norm_wide_bf16 : ssd_norm_wide_f32)
-             : (bf16 ? ssd_norm_bf16 : ssd_norm_f32);
   cudaError_t err;
   const int nprep = dt_blocks(a) + conv_blocks(a) + (conv_cache ? B : 0);
   prep_k<<<nprep, 256, 0, s>>>(a);
@@ -961,9 +1150,39 @@ extern "C" int ssd_mixer(const void* proj, const void* conv_w,
   scan_k<<<dim3(B * a.NC * its, G * ((hg + a.HT - 1) / a.HT)), 256,
            scan_smem(qp), s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long items = static_cast<long long>(B) * S * G;
-  const int per = warps / nw;
-  norm_k<<<static_cast<unsigned>((items + per - 1) / per), 32 * warps, 0,
-           s>>>(a);
-  return cudaGetLastError();
+  return launch_norm(a, bf16, s);
+}
+
+// The three launches of one recurrent step on `stream` (prep, state, norm);
+// 0, or the first CUDA error.  The state (B, NH, N, 64) and the conv window
+// (B, KW - 1, CD) are the cache's rows 0 .. B - 1, written in place; xbc, dtv
+// and da are the wrapper's scratch.  Shapes are the wrapper's to check.
+extern "C" int ssd_step(const void* proj, const void* conv_w,
+                        const void* conv_b, const float* a_log,
+                        const float* dt_bias, const float* d_skip,
+                        const void* scale, const unsigned char* valid,
+                        float* state, void* conv, void* xbc, float* dtv,
+                        float* da, void* out, int B, int NH, int G, int N,
+                        float eps, int bf16, int scale_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Args a{proj, conv_w, conv_b, a_log, dt_bias, d_skip, scale, valid, nullptr,
+         state, conv, xbc, dtv, da, nullptr, out};
+  a.B = B; a.S = 1; a.NH = NH; a.G = G; a.N = N; a.Q = 1; a.NC = 1;
+  a.di = NH * HD;
+  a.CD = a.di + 2 * G * N;
+  a.P = a.di + a.CD + NH;
+  a.eps = eps;
+  a.scale_bf16 = scale_bf16;
+  a.vec = a.P % 8 ? 1 : 8;
+  const int n128 = N == 128;
+  const Kernel prep_k = bf16 ? ssd_step_prep_bf16 : ssd_step_prep_f32;
+  const Kernel state_k =
+      bf16 ? (n128 ? ssd_step_state_bf16_n128 : ssd_step_state_bf16_n16)
+           : (n128 ? ssd_step_state_f32_n128 : ssd_step_state_f32_n16);
+  cudaError_t err;
+  prep_k<<<step_dt_blocks(a) + step_conv_blocks(a), STEP_THREADS, 0, s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  state_k<<<B * NH, STEP_THREADS, 0, s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_norm(a, bf16, s);
 }

@@ -1,6 +1,7 @@
-"""The Mamba-2 mixer's chunked path, between the in-projection's split and
-the out-projection: the Hopper kernels (CUDA C++, ``csrc/ssd.cu``) and the
-plain version.
+"""The Mamba-2 mixer between the in-projection's split and the
+out-projection, its chunked path (prefill, training) and its recurrent step
+(decode): the Hopper kernels (CUDA C++, ``csrc/ssd.cu``) and the plain
+versions.
 
 Replaces no TPU kernel: the reference's SSD (``repro.models.ssm``) is plain
 jnp.  The plain version (:func:`ssd_mixer_plain`, the same functions in
@@ -33,6 +34,18 @@ heads); the wrapper raises on others.
 does not record, the plain version on the CPU and wherever it records (the
 kernels have no backward); it counts ``ssm.scan_kernel`` or
 ``ssm.scan_plain`` in the open trace record, inside an ``ssm.scan`` span.
+
+The recurrent step (a cache, one token a row, no ``"rows"``):
+:func:`ssd_step_plain` is the mixer's decode branch in PyTorch operations
+(~38 kernels a layer, nine passes over the float32 ``(B, NH, N, HD)``
+state); :func:`ssd_step_cuda` makes three launches — dt and the conv into
+scratch with the window shifted in the cache; the state update in float32,
+read once and written once in place, with ``y = C·state + D·x``; the
+chunked path's gated norm — and allocates no state-sized temporary.  The
+state's products and sum round as the plain step's; ``y``'s sum over N is
+taken in another order.  Shapes: as the chunked path's, without the chunk.
+:func:`ssd_step` dispatches by the same rule and counts ``ssm.step_kernel``
+or ``ssm.step_plain`` (no span: a CUDA graph replays the step).
 """
 from __future__ import annotations
 
@@ -45,10 +58,13 @@ import torch.nn.functional as F
 from .. import trace
 from .flash_attention import _stream
 
-#: kernel launches since the counts were last reset (5 a chunked mixer call)
-launches = {"ssd": 0}
+#: kernel launches since the counts were last reset (5 a chunked mixer
+#: call, 3 a recurrent step)
+launches = {"ssd": 0, "ssd_step": 0}
 #: launches of one :func:`ssd_mixer_cuda` call
 KERNELS = 5
+#: launches of one :func:`ssd_step_cuda` call
+STEP_KERNELS = 3
 HEAD_DIM = 64
 STATES = (16, 128)
 CHUNKS = (128, 256)
@@ -81,6 +97,19 @@ def ssd_mixer(p: dict, cfg, proj: torch.Tensor, cache: dict | None,
         if kernel:
             return ssd_mixer_cuda(p, cfg, proj, cache, valid)
         return ssd_mixer_plain(p, cfg, proj, cache, valid)
+
+
+def ssd_step(p: dict, cfg, proj: torch.Tensor, cache: dict,
+             valid: torch.Tensor | None) -> torch.Tensor:
+    """(B, 1, 2di + 2·G·N + NH) -> the gated-normed (B, 1, di) in proj's
+    type; the cache's state and conv window advanced one step in place.
+    The kernels on a CUDA tensor without autograd recording, the plain
+    step otherwise."""
+    kernel = proj.is_cuda and not _records(p, proj)
+    trace.count("ssm.step_kernel" if kernel else "ssm.step_plain")
+    if kernel:
+        return ssd_step_cuda(p, cfg, proj, cache, valid)
+    return ssd_step_plain(p, cfg, proj, cache, valid)
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +254,41 @@ def ssd_mixer_plain(p: dict, cfg, proj: torch.Tensor, cache: dict | None,
     return yn
 
 
+def ssd_step_plain(p: dict, cfg, proj: torch.Tensor, cache: dict,
+                   valid: torch.Tensor | None) -> torch.Tensor:
+    """The recurrent step in PyTorch operations: the conv over the cached
+    window and the new input (an einsum at the compute type), the state
+    update and ``y = C·state`` in float32, then :func:`gated_norm`; the new
+    state and window copied into the cache."""
+    b = proj.shape[0]
+    cdt = proj.dtype
+    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    g = cfg.ssm_groups
+    z, xbc, dt_raw = torch.split(proj, [di, di + 2 * g * ds, nh], -1)
+    window = torch.cat([cache["conv"].to(cdt), xbc], 1)     # (B,kw,C)
+    conv = (torch.einsum("bkc,kc->bc", window, p["conv_w"].to(cdt))
+            + p["conv_b"].to(cdt))[:, None]
+    conv = F.silu(conv)
+    x, bm, cm = torch.split(conv, [di, g * ds, g * ds], -1)
+    xh = x.reshape(b, 1, nh, hd)
+    dtv = F.softplus(dt_raw.float() + p["dt_bias"])       # (B,1,NH)
+    if valid is not None:
+        dtv = dtv * valid[:, :, None].float()
+    # each head's group of B and C: (B, NH, N)
+    bh = bm[:, 0].float().reshape(b, g, ds).repeat_interleave(nh // g, 1)
+    ch = cm[:, 0].float().reshape(b, g, ds).repeat_interleave(nh // g, 1)
+    da = torch.exp(dtv[:, 0] * -torch.exp(p["a_log"]))   # (B,NH)
+    upd = bh[..., None] \
+        * (dtv[:, 0, :, None] * xh[:, 0].float())[:, :, None, :]
+    new_state = cache["state"] * da[..., None, None] + upd
+    y = (ch[:, :, None, :] @ new_state).reshape(b, 1, nh, hd)   # (B,1,NH,HD)
+    yn = gated_norm(p, y, xh, z, g, cfg.norm_eps)
+    cache["state"].copy_(new_state)
+    cache["conv"].copy_(window[:, 1:])
+    return yn
+
+
 # ---------------------------------------------------------------------------
 # The kernels
 # ---------------------------------------------------------------------------
@@ -240,32 +304,34 @@ def _lib() -> ctypes.CDLL:
         lib.ssd_mixer.argtypes = [_VP] * 16 + [_INT] * 6 + [
             ctypes.c_float, _INT, _INT, _VP]
         lib.ssd_mixer.restype = ctypes.c_int
+        lib.ssd_step.argtypes = [_VP] * 14 + [_INT] * 4 + [
+            ctypes.c_float, _INT, _INT, _VP]
+        lib.ssd_step.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _check(cfg, proj: torch.Tensor, cache: dict | None,
-           valid: torch.Tensor | None) -> None:
+def _check_call(cfg, proj: torch.Tensor, cache: dict | None,
+                valid: torch.Tensor | None) -> None:
+    """What both paths take: the compute type, the widths, the valid mask
+    and the caches (of the call's rows, or a larger cache's under
+    ``"rows"``)."""
     b, s, width = proj.shape
     nh, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
     if proj.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the kernels take bf16 or float32, not "
                          f"{proj.dtype}")
     if (cfg.ssm_head_dim != HEAD_DIM or n not in STATES
-            or cfg.ssm_chunk not in CHUNKS or cfg.ssm_conv != CONV
-            or nh % g or cfg.d_inner != nh * HEAD_DIM
+            or cfg.ssm_conv != CONV or nh % g
+            or cfg.d_inner != nh * HEAD_DIM
             or cfg.d_inner // g > GROUP_WIDTH):
         raise ValueError(
-            f"the kernels take head dim {HEAD_DIM}, state {STATES}, chunk "
-            f"{CHUNKS}, conv {CONV} and whole groups of heads at most "
-            f"{GROUP_WIDTH} wide; got head dim {cfg.ssm_head_dim}, state "
-            f"{n}, chunk {cfg.ssm_chunk}, conv {cfg.ssm_conv}, {nh} heads in "
-            f"{g} groups")
+            f"the kernels take head dim {HEAD_DIM}, state {STATES}, conv "
+            f"{CONV} and whole groups of heads at most {GROUP_WIDTH} wide; "
+            f"got head dim {cfg.ssm_head_dim}, state {n}, conv "
+            f"{cfg.ssm_conv}, {nh} heads in {g} groups")
     if width != 2 * cfg.d_inner + 2 * g * n + nh:
         raise ValueError(f"projection width {width} does not fit the config")
-    q = min(cfg.ssm_chunk, s)
-    if s % q:
-        raise ValueError(f"seq {s} must be divisible by chunk {q}")
     if valid is not None and (valid.dtype != torch.bool
                               or tuple(valid.shape) != (b, s)):
         raise ValueError(f"want a bool valid mask ({b}, {s}), got "
@@ -290,6 +356,51 @@ def _check(cfg, proj: torch.Tensor, cache: dict | None,
                              f"{tuple(rows.shape)}")
 
 
+def _check(cfg, proj: torch.Tensor, cache: dict | None,
+           valid: torch.Tensor | None) -> None:
+    """The chunked path's shapes: :func:`_check_call` and the chunk."""
+    _check_call(cfg, proj, cache, valid)
+    s = proj.shape[1]
+    if cfg.ssm_chunk not in CHUNKS:
+        raise ValueError(f"the kernels take chunk {CHUNKS}, not "
+                         f"{cfg.ssm_chunk}")
+    q = min(cfg.ssm_chunk, s)
+    if s % q:
+        raise ValueError(f"seq {s} must be divisible by chunk {q}")
+
+
+def _check_step(cfg, proj: torch.Tensor, cache: dict,
+                valid: torch.Tensor | None) -> None:
+    """The step's shapes: one token a row and a cache of the call's rows
+    (no ``"rows"``); the chunk plays no part."""
+    if proj.dim() != 3 or proj.shape[1] != 1 or cache is None \
+            or "rows" in cache:
+        raise ValueError("the step takes (B, 1, ...) with a cache of B rows "
+                         "and no \"rows\"")
+    _check_call(cfg, proj, cache, valid)
+
+
+def _operands(p: dict, cdt: torch.dtype) -> tuple:
+    """The mixer's small parameters as the kernels read them: the conv's
+    at the compute type, the decay, dt bias and skip in float32, the norm's
+    scale in bf16 or float32; contiguous (no copy where they are so)."""
+    scale = p["norm"]["scale"]
+    if scale.dtype != torch.bfloat16:
+        scale = scale.float()
+    return (p["conv_w"].to(cdt).contiguous(), p["conv_b"].to(cdt).contiguous(),
+            *(p[k].float().contiguous()
+              for k in ("a_log", "dt_bias", "d_skip")), scale.contiguous())
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _stream_of(dev: torch.device):
+    return _stream(torch.cuda.current_device() if dev.index is None
+                   else dev.index)
+
+
 def ssd_mixer_cuda(p: dict, cfg, proj: torch.Tensor, cache: dict | None,
                    valid: torch.Tensor | None) -> torch.Tensor:
     """The five launches on the current stream; raises on what they do not
@@ -300,14 +411,7 @@ def ssd_mixer_cuda(p: dict, cfg, proj: torch.Tensor, cache: dict | None,
     cdt, dev = proj.dtype, proj.device
     q = min(cfg.ssm_chunk, s)
     proj = proj.contiguous()
-    conv_w = p["conv_w"].to(cdt).contiguous()
-    conv_b = p["conv_b"].to(cdt).contiguous()
-    a_log, dt_bias, d_skip = (p[k].float().contiguous()
-                              for k in ("a_log", "dt_bias", "d_skip"))
-    scale = p["norm"]["scale"]
-    if scale.dtype != torch.bfloat16:
-        scale = scale.float()
-    scale = scale.contiguous()
+    conv_w, conv_b, a_log, dt_bias, d_skip, scale = _operands(p, cdt)
     xbc = torch.empty((b, s, cfg.d_inner + 2 * g * n), dtype=cdt, device=dev)
     dtv = torch.empty((2, b, nh, s), dtype=torch.float32, device=dev)
     states = torch.empty((b, s // q, nh, n, HEAD_DIM), dtype=torch.float32,
@@ -320,16 +424,43 @@ def ssd_mixer_cuda(p: dict, cfg, proj: torch.Tensor, cache: dict | None,
         rows, state = cache.get("rows"), cache["state"]
         if s >= CONV - 1:
             conv = cache["conv"]
-    ptr = (lambda t: None if t is None else t.data_ptr())
     err = _lib().ssd_mixer(
-        ptr(proj), ptr(conv_w), ptr(conv_b), ptr(a_log), ptr(dt_bias),
-        ptr(d_skip), ptr(scale), ptr(valid), ptr(rows), ptr(state),
-        ptr(conv), ptr(xbc), ptr(dtv[0]), ptr(dtv[1]), ptr(states), ptr(out),
-        b, s, nh, g, n, q, cfg.norm_eps, int(cdt == torch.bfloat16),
-        int(scale.dtype == torch.bfloat16),
-        _stream(torch.cuda.current_device() if dev.index is None
-                else dev.index))
+        _ptr(proj), _ptr(conv_w), _ptr(conv_b), _ptr(a_log), _ptr(dt_bias),
+        _ptr(d_skip), _ptr(scale), _ptr(valid), _ptr(rows), _ptr(state),
+        _ptr(conv), _ptr(xbc), _ptr(dtv[0]), _ptr(dtv[1]), _ptr(states),
+        _ptr(out), b, s, nh, g, n, q, cfg.norm_eps,
+        int(cdt == torch.bfloat16), int(scale.dtype == torch.bfloat16),
+        _stream_of(dev))
     if err:
         raise RuntimeError(f"ssd_mixer launch failed: CUDA error {err}")
     launches["ssd"] += KERNELS
+    return out
+
+
+def ssd_step_cuda(p: dict, cfg, proj: torch.Tensor, cache: dict,
+                  valid: torch.Tensor | None) -> torch.Tensor:
+    """The step's three launches on the current stream, the cache's state
+    and conv window written in place; raises on what they do not take.
+    Allocates the output and the scratch (the activated ``[x, B, C]``, dt
+    and its decay): nothing the size of the state."""
+    _check_step(cfg, proj, cache, valid)
+    b = proj.shape[0]
+    nh, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
+    cdt, dev = proj.dtype, proj.device
+    proj = proj.contiguous()
+    conv_w, conv_b, a_log, dt_bias, d_skip, scale = _operands(p, cdt)
+    xbc = torch.empty((b, cfg.d_inner + 2 * g * n), dtype=cdt, device=dev)
+    dtv = torch.empty((2, b, nh), dtype=torch.float32, device=dev)
+    out = torch.empty((b, 1, cfg.d_inner), dtype=cdt, device=dev)
+    if valid is not None:
+        valid = valid.contiguous()
+    err = _lib().ssd_step(
+        _ptr(proj), _ptr(conv_w), _ptr(conv_b), _ptr(a_log), _ptr(dt_bias),
+        _ptr(d_skip), _ptr(scale), _ptr(valid), _ptr(cache["state"]),
+        _ptr(cache["conv"]), _ptr(xbc), _ptr(dtv[0]), _ptr(dtv[1]),
+        _ptr(out), b, nh, g, n, cfg.norm_eps, int(cdt == torch.bfloat16),
+        int(scale.dtype == torch.bfloat16), _stream_of(dev))
+    if err:
+        raise RuntimeError(f"ssd_step launch failed: CUDA error {err}")
+    launches["ssd_step"] += STEP_KERNELS
     return out

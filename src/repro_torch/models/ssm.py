@@ -13,22 +13,25 @@ the gated RMSNorm taken over each of ``G`` equal slices of ``d_inner``
 (Mamba-2's grouped norm; one slice for ``G = 1``).
 
 Which path runs where (:func:`_mixer`): decode (a cache, S == 1, no
-``"rows"``) is the recurrent step here, in PyTorch operations, and a CUDA
-graph captures it.  Every other call (training, a forward without a cache,
-a prefill into a cache) is the chunked path, :func:`..kernels.ssd.ssd_mixer`:
-the hand-written kernels (``kernels/csrc/ssd.cu``: conv, float32 SSD and
-gated norm in five launches) for a CUDA tensor where autograd does not
-record — serving's prefills, ``forward`` under ``no_grad`` or on weights
-that need no gradient, the sharded mixer's local call under ``no_grad`` —
-and the plain version (the same functions in PyTorch operations) on the CPU
-and wherever autograd records (training: the kernels have no backward).
-Nothing else chooses: no option, environment variable or config field.
+``"rows"``) is the recurrent step, :func:`..kernels.ssd.ssd_step`, which a
+CUDA graph captures; every other call (training, a forward without a cache,
+a prefill into a cache) is the chunked path, :func:`..kernels.ssd.ssd_mixer`.
+Each runs the hand-written kernels (``kernels/csrc/ssd.cu``: the chunked
+path's conv, float32 SSD and gated norm in five launches; the step's conv,
+float32 state update and gated norm in three) for a CUDA tensor where
+autograd does not record — serving's prefills and decode steps, ``forward``
+under ``no_grad`` or on weights that need no gradient, the sharded mixer's
+local call under ``no_grad`` — and the plain version (the same functions in
+PyTorch operations) on the CPU and wherever autograd records (training: the
+kernels have no backward).  Nothing else chooses: no option, environment
+variable or config field.
 
 While a profile records (:mod:`repro_torch.trace`), each chunked call runs
 inside an ``ssm.scan`` span (conv, SSD and gated norm, whichever path) and
 counts one ``ssm.scan_kernel`` or one ``ssm.scan_plain`` in the open root's
-record; the recurrent step opens no span and counts nothing, and a CUDA
-graph replay opens none.
+record; each recurrent step counts one ``ssm.step_kernel`` or one
+``ssm.step_plain`` and opens no span (a CUDA graph's replay counts what its
+capture did: :class:`..serve.graph.DecodeGraph`).
 
 The reference's float32 sections are kept: the SSD and the recurrent step
 run in float32 on float32 copies of x, B, C and dt; the conv, the gate and
@@ -43,7 +46,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 
 from ..kernels import ssd
@@ -142,37 +144,11 @@ def _mixer(p: dict, cfg: ModelConfig, proj: torch.Tensor,
     """The block between its projections: (B, S, 2di + 2ds + nh) -> the
     gated-normed (B, S, di); the cache, if any, written in place.  A
     prefill or training call (no cache, S > 1, or ``"rows"``) is the
-    chunked path of :mod:`..kernels.ssd`; decode the recurrent step."""
+    chunked path of :mod:`..kernels.ssd`; decode its recurrent step."""
     rows = None if ssm_cache is None else ssm_cache.get("rows")
     if ssm_cache is None or proj.shape[1] > 1 or rows is not None:
         return ssd.ssd_mixer(p, cfg, proj, ssm_cache, valid)
-    b = proj.shape[0]
-    cdt = _dt(cfg, "compute")
-    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
-    g = cfg.ssm_groups
-    z, xbc, dt_raw = torch.split(proj, [di, di + 2 * g * ds, nh], -1)
-    window = torch.cat([ssm_cache["conv"].to(cdt), xbc], 1)  # (B,kw,C)
-    conv = (torch.einsum("bkc,kc->bc", window, p["conv_w"].to(cdt))
-            + p["conv_b"].to(cdt))[:, None]
-    conv = F.silu(conv)
-    x, bm, cm = torch.split(conv, [di, g * ds, g * ds], -1)
-    xh = x.reshape(b, 1, nh, hd)
-    dtv = F.softplus(dt_raw.float() + p["dt_bias"])       # (B,1,NH)
-    if valid is not None:
-        dtv = dtv * valid[:, :, None].float()
-    # each head's group of B and C: (B, NH, N)
-    bh = bm[:, 0].float().reshape(b, g, ds).repeat_interleave(nh // g, 1)
-    ch = cm[:, 0].float().reshape(b, g, ds).repeat_interleave(nh // g, 1)
-    da = torch.exp(dtv[:, 0] * -torch.exp(p["a_log"]))   # (B,NH)
-    upd = bh[..., None] \
-        * (dtv[:, 0, :, None] * xh[:, 0].float())[:, :, None, :]
-    new_state = ssm_cache["state"] * da[..., None, None] + upd
-    y = (ch[:, :, None, :] @ new_state).reshape(b, 1, nh, hd)   # (B,1,NH,HD)
-    yn = ssd.gated_norm(p, y, xh, z, g, cfg.norm_eps)
-    ssm_cache["state"].copy_(new_state)
-    ssm_cache["conv"].copy_(window[:, 1:])
-    return yn
+    return ssd.ssd_step(p, cfg, proj, ssm_cache, valid)
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:

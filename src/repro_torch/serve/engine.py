@@ -285,6 +285,8 @@ class ServeEngine:
         self._steps += 1
         trace.count("serve.steps")
         trace.count("serve.decode_tokens", len(active))
+        for k, n in self.graph.counts.items():     # what the step counted
+            trace.count(k, n)
         for slot in active:
             req = self.slot_req[slot]
             if self._kept(req):

@@ -28,23 +28,29 @@ On a CUDA device it is built in three steps:
 Then :meth:`DecodeGraph.run` copies its inputs into the static buffers and
 replays the graph: one launch from the host for the whole step.  A replay
 runs no Python, so the host-side launch counts of
-:mod:`repro_torch.kernels.flash_attention` and
-:mod:`repro_torch.kernels.moe_grouped` are recorded at capture and added
-per replay.  The MoE layers' expert choices of the captured call are kept
+:mod:`repro_torch.kernels.flash_attention`,
+:mod:`repro_torch.kernels.moe_grouped` and :mod:`repro_torch.kernels.ssd`
+are recorded at capture and added per replay, and the trace counters of one
+step (:func:`repro_torch.trace.tally`: one ``ssm.step_kernel`` a Mamba-2
+layer) are kept in ``counts`` for the engine to add each step.  The MoE
+layers' expert choices of the captured call are kept
 (:func:`repro_torch.models.moe.recording`): ``routes`` holds the last
 step's, rewritten by every replay.  A failed capture or replay raises;
 nothing runs the eager step in its place.
 
 On the CPU (``device="cpu"``, the tests) the same object does the warm-up
-and the restore, then runs the same call on the same buffers eagerly.
+and the restore, then runs the same call on the same buffers eagerly; its
+``counts`` are the warm-up's, and each eager call's own are tallied apart,
+so that a step counts once.
 Serving on a mesh (DTensor caches) is not graphed.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..kernels import flash_attention as FA
-from ..kernels import moe_grouped
+from ..kernels import moe_grouped, ssd
 from ..models import moe as MOE
 from ..models import transformer as T
 from ..models.config import ModelConfig
@@ -78,9 +84,12 @@ class DecodeGraph:
             image_embeds.to(device, copy=True)
         self.graph: torch.cuda.CUDAGraph | None = None
         #: kernel launches of one replay (host counts taken at capture):
-        #: the attention kernels', then the grouped expert products'
+        #: the attention kernels', the grouped expert products', the SSD's
         self.per_replay: dict[str, int] = {}
         self.grouped_per_replay: dict[str, int] = {}
+        self.ssd_per_replay: dict[str, int] = {}
+        #: the trace counts of one step (:func:`trace.tally`)
+        self.counts: dict[str, int] = {}
         #: the last step's expert choice of each MoE layer, (B, K) each
         #: (on a CUDA device the graph's own buffers)
         self.routes: list[torch.Tensor] = []
@@ -89,7 +98,7 @@ class DecodeGraph:
             with torch.cuda.device(device):
                 self._capture()
         else:
-            self._eager()                                      # warm-up
+            self.counts = self._eager()                        # warm-up
         for t, old in zip(_tensors(caches), before, strict=True):
             t.copy_(old)
 
@@ -100,29 +109,33 @@ class DecodeGraph:
                                       image_embeds=self.image_embeds)
             return logits, torch.argmax(logits[:, 0], -1)
 
-    def _eager(self) -> None:
-        with MOE.recording() as routes:
+    def _eager(self) -> dict[str, int]:
+        """One eager step: -> the trace counts it made (kept apart)."""
+        with MOE.recording() as routes, trace.tally() as counts:
             self.logits, self.next_tokens = self._step()
         self.routes = routes
+        return dict(counts)
 
     def _capture(self) -> None:
         main = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(main)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), trace.tally():
             self._step()
         main.wait_stream(side)
-        counted = dict(FA.launches)
-        grouped = dict(moe_grouped.launches)
+        launches = (FA.launches, moe_grouped.launches, ssd.launches)
+        before = [dict(d) for d in launches]
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph), MOE.recording() as routes:
+        with torch.cuda.graph(self.graph), MOE.recording() as routes, \
+                trace.tally() as counts:
             self.logits, self.next_tokens = self._step()
         self.routes = routes
-        self.per_replay = {k: FA.launches[k] - n for k, n in counted.items()}
-        FA.launches.update(counted)         # the capture launched nothing
-        self.grouped_per_replay = {k: moe_grouped.launches[k] - n
-                                   for k, n in grouped.items()}
-        moe_grouped.launches.update(grouped)
+        self.counts = dict(counts)
+        self.per_replay, self.grouped_per_replay, self.ssd_per_replay = (
+            {k: d[k] - n for k, n in b.items()}
+            for d, b in zip(launches, before, strict=True))
+        for d, b in zip(launches, before, strict=True):
+            d.update(b)                     # the capture launched nothing
 
     def run(self, tokens, positions) -> tuple[torch.Tensor, torch.Tensor]:
         """Copy ``tokens`` (B, 1) and ``positions`` (B, 1) (tensors on any
@@ -135,8 +148,9 @@ class DecodeGraph:
             self._eager()
         else:
             self.graph.replay()
-            for k, n in self.per_replay.items():
-                FA.launches[k] += n
-            for k, n in self.grouped_per_replay.items():
-                moe_grouped.launches[k] += n
+            for d, per in ((FA.launches, self.per_replay),
+                           (moe_grouped.launches, self.grouped_per_replay),
+                           (ssd.launches, self.ssd_per_replay)):
+                for k, n in per.items():
+                    d[k] += n
         return self.logits, self.next_tokens

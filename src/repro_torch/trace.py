@@ -65,8 +65,11 @@ CPU the step runs eagerly and opens the layers' spans too).  Counters:
 ``serve.prompt_tokens``, ``serve.prefill_forwards`` (one a prefill
 forward), ``serve.decode_tokens`` (tokens the decode steps emitted),
 ``serve.steps``, ``ssm.scan_kernel`` / ``ssm.scan_plain`` (one a chunked
-mixer call, by the path it took), and, read once per run from the grouped
-expert product's device ring (``kernels/moe_grouped.py``, which graph
+mixer call, by the path it took), ``ssm.step_kernel`` / ``ssm.step_plain``
+(one a recurrent Mamba-2 step, by path: a decode step's counts are taken
+once, under :func:`tally`, where the decode graph is captured, and
+``ServeEngine.step`` adds them each step), and, read once per run from the
+grouped expert product's device ring (``kernels/moe_grouped.py``, which graph
 replays write too), ``moe.launches``, ``moe.experts`` and ``moe.rows``
 summed, with each launch's ``(experts with rows, rows)`` under the
 record's ``lists["moe.launch"]`` (:func:`note`).
@@ -90,6 +93,8 @@ _OFF = contextlib.nullcontext()
 _open: Counter | None = None
 #: the open root's lists (:func:`note`)
 _lists: dict = {}
+#: the counts :func:`tally` is collecting, or None
+_tally: Counter | None = None
 _calls: deque = deque(maxlen=MAX_CALLS)
 
 
@@ -166,9 +171,26 @@ def spanned(name: str):
 
 
 def count(key: str, n: int = 1) -> None:
-    """Add ``n`` to counter ``key`` of the open root, if any."""
-    if _open is not None:
+    """Add ``n`` to counter ``key`` of the open :func:`tally`, else of the
+    open root, if any."""
+    if _tally is not None:
+        _tally[key] += n
+    elif _open is not None:
         _open[key] += n
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect the counts made inside into a Counter of their own (yielded),
+    tracing on or off, and keep them out of the open root's record: what a
+    CUDA graph's capture counts, each replay would count again without
+    running any Python."""
+    global _tally
+    outer, _tally = _tally, Counter()
+    try:
+        yield _tally
+    finally:
+        _tally = outer
 
 
 def note(key: str, values: list) -> None:

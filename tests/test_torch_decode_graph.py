@@ -34,6 +34,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch import configs as TC
 from repro_torch import convert
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ssd as SSD
 from repro_torch.launch import serve as TLS
 from repro_torch.models import transformer as TT
 from repro_torch.serve.engine import Request, _prefill_fn
@@ -293,8 +294,15 @@ def test_decode_graph_replays_on_card(name, card):
     """Eight replays against eight eager ``decode_step`` calls on a copy of
     the caches: the same greedy tokens and logits; a replay counts one
     attention launch and one merge per attention layer (the split path
-    at 4 one-query rows)."""
+    at 4 one-query rows).  The SSM families' mixers take the widths the
+    step kernels take (head dim 64, state 16; the smoke config's 16 and 8
+    are refused on the card): a replay counts the step's three launches
+    and one ``ssm.step_kernel`` per Mamba-2 layer."""
     cfg, params = _port(name, device=card)
+    if cfg.has_ssm:
+        cfg = cfg.replace(ssm_head_dim=64, ssm_state=16)
+        params = TT.init_params(torch.Generator(device=card).manual_seed(0),
+                                cfg)
     caches = TT.init_caches(cfg, SLOTS, 64, dtype=torch.float32, device=card)
     graph = DecodeGraph(params, cfg, caches, SLOTS, device=card)
     assert graph.graph is not None
@@ -305,6 +313,10 @@ def test_decode_graph_replays_on_card(name, card):
     assert graph.per_replay == {"flash_attention": attn,
                                 "flash_attention_combine": attn * split,
                                 "flash_attention_bwd": 0}
+    n_ssm = sum(k in ("ssm", "hybrid") for k in cfg.layer_kinds)
+    assert graph.ssd_per_replay == {"ssd": 0,
+                                    "ssd_step": SSD.STEP_KERNELS * n_ssm}
+    assert graph.counts == ({"ssm.step_kernel": n_ssm} if n_ssm else {})
     eager = [{k: {n: t.clone() for n, t in part.items()}
               for k, part in c.items()} for c in caches]
     toks, pos = _decode_inputs(cfg)

@@ -214,7 +214,8 @@ def test_spans_and_counters_of_one_run_at_the_published_pattern():
     ``.dispatch`` / ``.experts`` / ``.combine`` in the forward and in each
     step (40 each a call on the CPU, where the steps run eagerly) and
     writes one launch record of the SwiGLU product a call; each of the 36
-    Mamba-2 layers one ``ssm.scan`` a prefill forward."""
+    Mamba-2 layers one ``ssm.scan`` a prefill forward and one
+    ``ssm.step_plain`` a decode step."""
     cfg = get_config(ARCH).smoke().replace(layer_pattern=PATTERN,
                                            n_layers=40)
     eng = ServeEngine(cfg, params(cfg), n_slots=2, max_len=64, device="cpu")
@@ -239,6 +240,7 @@ def test_spans_and_counters_of_one_run_at_the_published_pattern():
         "serve.prompt_tokens": 50, "serve.prefill_forwards": 1,
         "serve.steps": 2, "serve.decode_tokens": 4,
         "moe.launches": 40 * calls, "ssm.scan_plain": 36,
+        "ssm.step_plain": 36 * 2,
         "moe.rows": 40 * k * (2 * 32 + 2 * 2),
         "moe.experts": sum(e for e, _r in rec["lists"]["moe.launch"])}
     assert len(rec["lists"]["moe.launch"]) == 40 * calls

@@ -442,7 +442,9 @@ def test_spans_and_counters_of_one_run():
     decode step runs eagerly, so each MoE layer opens its spans in every
     prefill forward and every step, and each step's grouped product takes
     both slots' rows; each SSM layer of a prefill forward takes the plain
-    chunked path on the CPU (``ssm.scan_plain``, no ``ssm.scan_kernel``)."""
+    chunked path on the CPU (``ssm.scan_plain``, no ``ssm.scan_kernel``),
+    and of each step the plain recurrent step (``ssm.step_plain``, counted
+    by the engine from what the decode graph recorded)."""
     cfg = small()
     eng = ServeEngine(cfg, params(cfg), n_slots=2, max_len=64, device="cpu")
     for n in (10, 20, 30):
@@ -468,7 +470,7 @@ def test_spans_and_counters_of_one_run():
         "serve.prompt_tokens": 60, "serve.prefill_forwards": prefills,
         "serve.steps": steps,
         "serve.decode_tokens": 9, "moe.launches": n_moe * eng_calls,
-        "ssm.scan_plain": n_ssm * prefills,
+        "ssm.scan_plain": n_ssm * prefills, "ssm.step_plain": n_ssm * steps,
         "moe.rows": n_moe * pairs * (2 * 32 + 32 + 2 * steps),
         "moe.experts": sum(e for e, _r in rec["lists"]["moe.launch"])}
     assert len(rec["lists"]["moe.launch"]) == n_moe * eng_calls

@@ -1,12 +1,15 @@
-"""The Mamba-2 mixer's chunked path (``repro_torch.kernels.ssd``).
+"""The Mamba-2 mixer's chunked path and recurrent step
+(``repro_torch.kernels.ssd``).
 
 On the CPU: the dispatching wrapper runs the plain version, which must equal
 the mixer's chunked body as it stood before the kernels came (frozen below as
 :func:`_mixer_before`) bit for bit — output, state and conv window — at one
 and two groups, bf16 and float32, with right-padded rows, ``"rows"`` into a
-larger cache and a prompt shorter than the conv window; the recurrent decode
-branch, left in ``models/ssm.py``, equals it too.  Where autograd records,
-the plain version runs.
+larger cache and a prompt shorter than the conv window; the recurrent step,
+moved from ``models/ssm.py`` into ``ssd_step_plain``, equals the frozen decode
+branch too, over chained steps with a ``valid`` mask.  Where autograd
+records, the plain version runs.  Each step counts one ``ssm.step_plain``;
+the decode graph records a step's counts and the engine adds them each step.
 
 On the card (``-m cuda``): the kernels against the plain version at the
 widths of Nemotron 3 Nano, mamba2-780m, hymba-1.5b and Granite 4.0-H
@@ -17,7 +20,12 @@ another order (the exponentials turn an absolute error of the sums, a few
 float32 ulps of up to a few hundred, into a relative one): 1e-4; the output
 goes through three roundings to the compute type after that float32 sum
 (``y + D·x``, the gate, the norm), each of which may land one ulp apart: bf16
-2e-2, float32 1e-4.
+2e-2, float32 1e-4.  The step's kernels against the plain step over 64
+chained steps: the conv window exact; the state float32 with every product
+and sum rounded as the plain step's, so it can part only where the conv's sum
+of four products, which the plain step's einsum leaves to a library product,
+rounds the other way: :data:`STEP_STATE_TOL`; the output as the chunked
+path's (``y``'s sum over N in another order, then the same three roundings).
 """
 import pytest
 import torch
@@ -202,7 +210,8 @@ def test_autograd_keeps_the_plain_version():
 
 def test_each_chunked_call_is_counted_once():
     """``ssm.scan_plain`` once a chunked call on the CPU, inside one
-    ``ssm.scan`` span; a decode step counts nothing."""
+    ``ssm.scan`` span; a decode step counts one ``ssm.step_plain`` and
+    opens no span."""
     from torch.profiler import ProfilerActivity, profile
     cfg = _cfg(2, "float32")
     p, proj = _case(cfg, 2, 32, seed=8)
@@ -214,8 +223,96 @@ def test_each_chunked_call_is_counted_once():
             SSD.ssd_mixer(p, cfg, proj, None, None)
             SSM._mixer(p, cfg, step, _cache(cfg, 2, 1), None)
     rec, = trace.calls()
-    assert rec["counts"] == {"ssm.scan_plain": 2}
+    assert rec["counts"] == {"ssm.scan_plain": 2, "ssm.step_plain": 1}
     assert sum(e.name == "ssm.scan" for e in prof.events()) == 2
+
+
+def _steps(cfg, b, n, seed, device="cpu"):
+    """``n`` projections of one token and their ``valid`` masks (B, 1),
+    each row a pad at about one step in five (None at B = 1)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    p = SSM.init_ssm(g, cfg)
+    cdt = getattr(torch, cfg.compute_dtype)
+    w_in = p["w_in"].to(cdt)
+    out = []
+    for _ in range(n):
+        u = torch.randn((b, 1, cfg.d_model), generator=g, device=device)
+        valid = None if b == 1 else \
+            torch.rand((b, 1), generator=g, device=device) > 0.2
+        out.append((u.to(cdt) @ w_in, valid))
+    return p, out
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_the_plain_step_equals_the_decode_branch_before_it(groups, dtype,
+                                                           masked):
+    """``ssd_step`` (the plain step on the CPU) against the frozen decode
+    branch, bit for bit, over 6 chained steps: output, state, window."""
+    cfg = _cfg(groups, dtype)
+    p, steps = _steps(cfg, 3 if masked else 1, 6, seed=14)
+    want_c, got_c = _two(cfg, 3 if masked else 1, None, seed=15)
+    for proj, valid in steps:
+        want = _mixer_before(p, cfg, proj, want_c, valid)
+        got = SSD.ssd_step(p, cfg, proj, got_c, valid)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+        assert torch.equal(got_c["state"], want_c["state"])
+        assert torch.equal(got_c["conv"], want_c["conv"])
+
+
+def test_the_step_refuses_shapes_it_does_not_take():
+    """The served widths pass the step's check at any chunk; more than one
+    token, ``"rows"``, no cache, a valid mask of another shape or a state
+    the kernels do not take raise (nothing falls back)."""
+    for arch in ("nemotron-3-nano-30b-a3b", "granite-4.0-h-small",
+                 "mamba2-780m", "hymba-1.5b"):
+        cfg = get_config(arch).replace(ssm_chunk=64)
+        width = 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state \
+            + cfg.ssm_heads
+        proj = torch.zeros((2, 1, width), dtype=torch.bfloat16)
+        cache = SSM.init_ssm_cache(cfg, 2)
+        SSD._check_step(cfg, proj, cache, torch.ones((2, 1), dtype=bool))
+        bad = [(proj.expand(2, 2, width), cache, None),
+               (proj, dict(cache, rows=torch.arange(2)), None),
+               (proj, None, None),
+               (proj, cache, torch.ones((2, 2), dtype=bool)),
+               (proj.float(), cache, None)]
+        for args in bad:
+            with pytest.raises(ValueError):
+                SSD._check_step(cfg, *args)
+    cfg = get_config("mamba2-780m").replace(ssm_state=64)
+    with pytest.raises(ValueError):
+        SSD._check_step(cfg, torch.zeros(
+            (1, 1, 2 * cfg.d_inner + 2 * 64 + cfg.ssm_heads),
+            dtype=torch.bfloat16), SSM.init_ssm_cache(cfg, 1), None)
+
+
+def test_the_decode_graph_counts_one_step_a_mamba_layer():
+    """The decode graph keeps the counts of its warm-up step (one
+    ``ssm.step_plain`` a Mamba-2 layer on the CPU) and its eager calls
+    count nothing themselves; ``ServeEngine.step`` adds them each step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("mamba2-780m").smoke()
+    params = T.init_params(torch.Generator().manual_seed(16), cfg)
+    eng = ServeEngine(cfg, params, n_slots=2, max_len=64, device="cpu")
+    assert eng.graph.counts == {"ssm.step_plain": cfg.n_layers}
+    for n in (5, 9):
+        eng.submit(list(range(1, n + 1)), max_new_tokens=3)
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.root("alone"):
+            eng.graph.run(torch.zeros((2, 1), dtype=torch.int64),
+                          torch.zeros((2, 1), dtype=torch.int32))
+        eng.run()
+    alone, run = trace.calls()
+    assert alone["counts"] == {}
+    assert eng._steps > 0
+    assert run["counts"]["ssm.step_plain"] == cfg.n_layers * eng._steps
+    assert "ssm.step_kernel" not in run["counts"]
 
 
 def test_the_wrapper_refuses_shapes_it_does_not_take():
@@ -337,3 +434,79 @@ def test_the_mixer_launches_the_kernels_on_card_without_autograd():
             assert SSD.launches["ssd"] - before == SSD.KERNELS
     rec, = trace.calls()
     assert rec["counts"] == {"ssm.scan_kernel": 1, "ssm.scan_plain": 1}
+
+
+#: the step's state, of the largest state value (see the module's docstring;
+#: H100 readings over 64 steps: 0 in bf16 but for Granite's 16 rows, 4.0e-5,
+#: and at most 4.2e-7 in float32)
+STEP_STATE_TOL = 1e-4
+
+
+def _kernel_chain(p, cfg, steps, cache, plain=None):
+    """Run ``steps`` through ``ssd_step`` on the card inside one traced
+    root, the state and window kept in place and no state-sized temporary
+    allocated; with ``plain`` (a second cache), the plain step after each
+    kernel step, compared.  -> (outputs, the root's counts, launches,
+    the largest output and state differences)."""
+    ptrs = (cache["state"].data_ptr(), cache["conv"].data_ptr())
+    outs, worst, worst_state = [], 0.0, 0.0
+    dtype = cfg.compute_dtype
+    trace.clear()
+    before = SSD.launches["ssd_step"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with trace.root("t"):
+            for i, (proj, valid) in enumerate(steps):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                outs.append(SSD.ssd_step(p, cfg, proj, cache, valid))
+                torch.cuda.synchronize()
+                extra = torch.cuda.max_memory_allocated() - base
+                assert extra < cache["state"].nbytes // 4, extra
+                if plain is None:
+                    continue
+                want = SSD.ssd_step_plain(p, cfg, proj, plain, valid)
+                err = _rel(outs[-1], want)
+                st = _rel(cache["state"], plain["state"])
+                assert err <= TOL[dtype], (i, err)
+                assert st <= STEP_STATE_TOL, (i, st)
+                assert torch.equal(cache["conv"], plain["conv"]), i
+                worst, worst_state = max(worst, err), max(worst_state, st)
+    assert ptrs == (cache["state"].data_ptr(), cache["conv"].data_ptr())
+    rec, = trace.calls()
+    return (outs, rec["counts"], SSD.launches["ssd_step"] - before, worst,
+            worst_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_the_step_kernels_match_the_plain_step_on_card(arch, b):
+    """Full widths, bf16 (and float32 at B = 16), 64 chained steps from a
+    random state and window, rows padded at about one step in five (B =
+    16): the kernels' output, state and window against the plain step's
+    after every step.  A second chain from the same start is equal bit for
+    bit; the state and window are written in place (the same storage) and
+    no state-sized temporary is allocated; each step counts
+    ``ssm.step_kernel`` and three launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dtype in ("bfloat16", "float32") if b == 16 else ("bfloat16",):
+        cfg = get_config(arch).replace(param_dtype=dtype,
+                                       compute_dtype=dtype)
+        p, steps = _steps(cfg, b, 64, seed=b, device="cuda")
+        tag = (arch, b, dtype)
+        got_c, plain_c, again_c = (_cache(cfg, b, 17, "cuda")
+                                   for _ in range(3))
+        outs, counts, n, worst, worst_state = _kernel_chain(
+            p, cfg, steps, got_c, plain_c)
+        print(f"{tag}: output {worst}, state {worst_state} of the largest")
+        assert counts == {"ssm.step_kernel": len(steps)}, tag
+        assert n == SSD.STEP_KERNELS * len(steps), tag
+        again = _kernel_chain(p, cfg, steps, again_c)[0]
+        assert all(torch.equal(x, y) for x, y in
+                   zip(outs, again, strict=True)), tag
+        assert torch.equal(got_c["state"], again_c["state"]), tag
+        assert torch.equal(got_c["conv"], again_c["conv"]), tag
